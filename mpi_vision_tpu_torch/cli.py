@@ -1,0 +1,185 @@
+"""Command-line entry point: ``python -m mpi_vision_tpu_torch <command>``.
+
+  * ``serve`` — run the batched render-serving subsystem (serve/): scene
+    cache + micro-batching scheduler + HTTP front end (``/render``,
+    ``/healthz``, ``/stats``, ``/debug/traces``) over synthetic scenes, on
+    the card (``--device cuda``, the default) or, when asked, the CPU.
+
+Prints a one-line JSON summary on stdout (diagnostics on stderr).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def _log(msg: str) -> None:
+  print(msg, file=sys.stderr, flush=True)
+
+
+def _write_port_file(path: str, port: int) -> None:
+  """Atomic write (tmp + rename): a supervisor polling the file must
+  never read a half-written port number."""
+  tmp_path = path + ".tmp"
+  with open(tmp_path, "w") as fh:
+    fh.write(str(port))
+  os.replace(tmp_path, path)
+
+
+def cmd_serve(args: argparse.Namespace) -> dict:
+  import signal
+  import threading
+
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.serve import RenderService, make_http_server
+
+  if args.max_inflight == "auto":
+    max_inflight: int | str = "auto"
+  else:
+    try:
+      max_inflight = int(args.max_inflight)
+    except ValueError:
+      raise SystemExit(
+          f"--max-inflight must be an integer or 'auto', "
+          f"got {args.max_inflight!r}") from None
+  convention = Convention.EXACT if args.convention == "exact" else None
+  svc = RenderService(
+      cache_bytes=args.cache_mb << 20, max_batch=args.max_batch,
+      max_wait_ms=args.max_wait_ms, max_inflight=max_inflight,
+      method=args.method, convention=convention, device=args.device,
+      max_queue=args.max_queue)
+  ids = svc.add_synthetic_scenes(
+      args.scenes, height=args.img_size, width=args.img_size,
+      planes=args.num_planes)
+  _log(f"serve: {len(ids)} synthetic scenes "
+       f"[{args.img_size}x{args.img_size}x{args.num_planes}] on "
+       f"{svc.engine.device}")
+  if args.warmup:
+    # Build the kernel and allocate the pinned buffers before traffic.
+    svc.warmup()
+    _log("serve: warm-up done (every batch bucket rendered once)")
+
+  httpd = make_http_server(svc, host=args.host, port=args.port)
+  port = httpd.server_address[1]
+  if args.port_file:
+    _write_port_file(args.port_file, port)
+
+  # Graceful shutdown: the handlers only set an event; teardown runs on
+  # the main thread below. Installed before the "listening" line: once a
+  # supervisor sees the address it may signal at any moment.
+  stop_event = threading.Event()
+
+  def _on_signal(signum, frame):  # noqa: ARG001 - stdlib signature
+    stop_event.set()
+
+  previous_handlers = {}
+  for sig in (signal.SIGTERM, signal.SIGINT):
+    try:
+      previous_handlers[sig] = signal.signal(sig, _on_signal)
+    except (ValueError, OSError):  # non-main thread / unsupported platform
+      pass
+
+  thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+  thread.start()
+  _log(f"serve: listening on http://{args.host}:{port} "
+       f"(/render, /healthz, /stats, /debug/traces); "
+       f"engine {svc.engine.describe()}")
+
+  t0 = time.time()
+  try:
+    stop_event.wait(args.duration if args.duration > 0 else None)
+  finally:
+    httpd.shutdown()  # stop accepting; in-flight handler threads finish
+    httpd.server_close()
+    stats = svc.stats()
+    health = svc.healthz()
+    svc.close()  # drain the scheduler, fail leftovers with a clear message
+    for sig, handler in previous_handlers.items():
+      signal.signal(sig, handler)
+    _log("serve: drained and closed")
+  return {
+      "command": "serve",
+      "host": args.host,
+      "port": port,
+      "scenes": len(svc.scene_ids()),
+      "seconds": round(time.time() - t0, 1),
+      "requests": stats["requests"],
+      "renders_per_sec": stats["renders_per_sec"],
+      "latency_ms": stats["latency_ms"],
+      "mean_batch_size": stats["mean_batch_size"],
+      "cache_hit_rate": stats["cache"]["hit_rate"],
+      "platform": stats["engine"]["platform"],
+      "device": stats["engine"]["device"],
+      "method": stats["engine"]["method"],
+      "health": health["status"],
+      "errors": stats["errors"],
+      "rejected": stats["rejected"],
+      "pipeline": stats["pipeline"],
+  }
+
+
+def build_parser() -> argparse.ArgumentParser:
+  ap = argparse.ArgumentParser(prog="mpi_vision_tpu_torch",
+                               description=__doc__.splitlines()[0])
+  sub = ap.add_subparsers(dest="command", required=True)
+
+  s = sub.add_parser(
+      "serve", help="run the batched MPI render-serving subsystem")
+  s.add_argument("--host", default="127.0.0.1")
+  s.add_argument("--port", type=int, default=8080,
+                 help="HTTP port (0 = ephemeral; logged on stderr)")
+  s.add_argument("--port-file", default="",
+                 help="write the bound port here (atomic tmp+rename) once "
+                      "listening")
+  s.add_argument("--duration", type=float, default=0.0,
+                 help="seconds to serve; <= 0 runs until interrupted")
+  s.add_argument("--scenes", type=int, default=4,
+                 help="synthetic scene count")
+  s.add_argument("--img-size", type=int, default=256)
+  s.add_argument("--num-planes", type=int, default=16)
+  s.add_argument("--max-batch", type=int, default=8,
+                 help="micro-batch cap per device dispatch")
+  s.add_argument("--max-wait-ms", type=float, default=3.0,
+                 help="straggler window before a partial batch dispatches")
+  s.add_argument("--max-inflight", default="4",
+                 help="streaming-pipeline window: concurrent in-flight "
+                      "batches; 1 = blocking dispatch; 'auto' starts at 2 "
+                      "and grows while the dispatch gap keeps shrinking")
+  s.add_argument("--cache-mb", type=int, default=2048,
+                 help="baked-scene cache byte budget")
+  s.add_argument("--max-queue", type=int, default=1024,
+                 help="pending-request cap; beyond it /render sheds "
+                      "load with 503")
+  s.add_argument("--method", default="fused_pallas",
+                 choices=("fused_pallas", "fused", "scan", "assoc"),
+                 help="per-view render method (core/render.py); "
+                      "fused_pallas is the CUDA kernel")
+  s.add_argument("--convention", default="ref", choices=("ref", "exact"),
+                 help="sampling convention: 'ref' reproduces the "
+                      "reference exactly (its axis swap is benign on "
+                      "square frames only); 'exact' is correct for "
+                      "non-square scenes")
+  s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                 help="render device; cuda fails without a card rather "
+                      "than falling back to the CPU")
+  s.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="build the kernel and render each batch bucket once "
+                      "before serving traffic")
+  s.set_defaults(fn=cmd_serve)
+  return ap
+
+
+def main(argv=None) -> int:
+  args = build_parser().parse_args(argv)
+  summary = args.fn(args)
+  print(json.dumps(summary))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

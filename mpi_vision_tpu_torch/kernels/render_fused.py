@@ -1,0 +1,245 @@
+"""Fused homography warp + bilinear sample + over-composite, one CUDA kernel.
+
+PyTorch counterpart of the forward half of
+``mpi_vision_tpu/kernels/render_pallas.py``. There, three Pallas kernels
+(``_separable_kernel``, ``_shared_kernel``, ``_banded_kernel``) cover the
+poses whose bilinear taps fit a TPU lane gather's 128-lane windows, chosen
+by eager planners, with an XLA gather fallback past the envelope. Here one
+hand-written CUDA kernel (``csrc/render_fused.cu``) renders every pose:
+a Hopper thread gathers from anywhere, so the port has no envelope, no
+plan, and no fallback.
+
+  * ``pixel_homographies`` — per-plane maps from target to source *pixels*
+    (the convention's normalisation folded into the 3x3).
+  * ``plain_render`` — the plain PyTorch version of the kernel, in the
+    kernel's layout. ``render_mpi_fused`` runs it for CPU tensors, and the
+    chip smoke test holds the kernel to it on the card.
+  * ``reference_render`` / ``_reference_render_batch`` — the same function
+    in the JAX package's planar layout, the counterparts of its oracle.
+  * ``render_mpi_fused`` — the wrapper: launches the kernel for CUDA
+    tensors (``render_mpi_fused.launches`` counts launches), runs
+    ``plain_render`` for CPU tensors, and raises on anything else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from mpi_vision_tpu_torch.core import geometry, render, sampling
+from mpi_vision_tpu_torch.core.sampling import Convention
+
+KERNEL = "render_fused"
+# The C entry point of csrc/render_fused.cu: planes, homs, out, views,
+# planes, height, width, view stride (floats), device index, stream.
+_SIGNATURES = {"mpi_render_fused": (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+# f32 operations that warp + bilinear sample + composite need for one
+# output pixel of one plane: homography 6 mul + 6 add + 2 div + the zero
+# test (15); floor, fraction and 1 - fraction for x and y (6); 4 channels
+# x (6 mul + 3 add) for the bilinear blend (36); composite 3 x 3 plus
+# 1 - alpha (10). Each division counts once. The kernel also spends 8 on
+# the sampler's (u + 0.5) / W * W - 0.5 round trip, the identity in exact
+# arithmetic, only to round as the plain version does; the bound does not
+# count them.
+FLOPS_PER_SAMPLE = 15 + 6 + 36 + 10
+# Homographies are staged in shared memory, P x 9 floats per block; past
+# 48 KiB the launch needs an opt-in attribute this kernel does not set.
+MAX_PLANES = (48 * 1024) // (9 * 4)
+MAX_VIEWS = 65535  # gridDim.z
+# The serving engine's completion workers launch concurrently; the launch
+# and plain-version counters are read-modify-write.
+_count_lock = threading.Lock()
+
+
+def pixel_homographies(
+    tgt_pose: torch.Tensor,
+    depths: torch.Tensor,
+    intrinsics: torch.Tensor,
+    height: int,
+    width: int,
+    convention: Convention = Convention.EXACT,
+) -> torch.Tensor:
+  """Per-plane 3x3 maps from target *pixel* coords to source *pixel* coords.
+
+  Composes the plane-induced homographies (core/render.py) with the
+  convention's (0,1) normalization and the sampler's ``c*size - 0.5`` pixel
+  mapping. For ``EXACT`` the composition is the identity; for the
+  reference conventions it is a diagonal rescale + shift.
+
+  Returns ``[P, B, 3, 3]`` float32.
+  """
+  homs = render.plane_homographies(tgt_pose, depths, intrinsics)  # [P,B,3,3]
+  if convention is Convention.EXACT:
+    return homs.to(torch.float32)
+  if convention is Convention.REF_HOMOGRAPHY:
+    # c = (x/(H-1), y/(W-1)); px = c_x*W - 0.5, py = c_y*H - 0.5.
+    post = np.array([
+        [width / (height - 1), 0.0, -0.5],
+        [0.0, height / (width - 1), -0.5],
+        [0.0, 0.0, 1.0],
+    ], dtype=np.float32)
+  elif convention is Convention.REF_PROJECTION:
+    # c = ((x+0.5)/H, (y+0.5)/W); px = c_x*W - 0.5, py = c_y*H - 0.5.
+    post = np.array([
+        [width / height, 0.0, 0.5 * width / height - 0.5],
+        [0.0, height / width, 0.5 * height / width - 0.5],
+        [0.0, 0.0, 1.0],
+    ], dtype=np.float32)
+  else:
+    raise ValueError(f"unknown convention: {convention!r}")
+  post = torch.from_numpy(post).to(homs.device)
+  return geometry.matmul_small(post, homs.to(torch.float32))
+
+
+def is_separable(homs, atol: float = 1e-6) -> bool:
+  """Whether pixel homographies are axis-aligned (h01 = h10 = h20 = h21 = 0).
+
+  The TPU kernels render such poses through their separable tier; the
+  CUDA kernel takes every pose alike, and the chip smoke test uses this
+  to show that its pose classes cover both kinds.
+  """
+  h = np.asarray(torch.as_tensor(homs).detach().cpu()).reshape(-1, 9)
+  return bool(np.all(np.abs(h[:, [1, 3, 6, 7]]) <= atol * np.abs(h[:, 8:9])))
+
+
+def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
+  """The plain PyTorch version of the kernel, in the kernel's layout.
+
+  Args:
+    planes: ``[P, H, W, 4]`` (one scene shared by every view) or
+      ``[V, P, H, W, 4]`` RGBA planes, back-to-front.
+    homs: ``[V, P, 3, 3]`` target-pixel -> source-pixel homographies.
+
+  Returns:
+    ``[V, H, W, 3]``. One plane at a time, so no warped-plane stack is
+    held; each output element is the same f32 expression the kernel
+    evaluates, in the same order.
+  """
+  with _count_lock:
+    plain_render.calls += 1
+  shared = planes.dim() == 4
+  num_planes, h, w = planes.shape[-4], planes.shape[-3], planes.shape[-2]
+  grid = geometry.homogeneous_grid(h, w, device=planes.device).permute(1, 2, 0)
+  scale = torch.tensor([w, h], dtype=torch.float32, device=planes.device)
+  out = None
+  for p in range(num_planes):
+    xy = geometry.from_homogeneous(
+        geometry.apply_homography(grid, homs[:, p]))    # [V, H, W, 2]
+    # The sampler maps (0,1) coords via px = c*W - 0.5; feed it raw pixels.
+    coords = (xy + 0.5) / scale
+    plane = planes[p] if shared else planes[:, p]
+    rgba = sampling.bilinear_sample(plane, coords)      # [V, H, W, 4]
+    if out is None:
+      out = rgba[..., :3]  # farthest plane: alpha ignored
+    else:
+      rgb, alpha = rgba[..., :3], rgba[..., 3:]
+      out = rgb * alpha + out * (1.0 - alpha)
+  return out
+
+
+plain_render.calls = 0
+
+
+def reference_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
+  """``plain_render`` in the JAX package's planar layout.
+
+  ``planes`` ``[P, 4, H, W]``, ``homs`` ``[P, 3, 3]`` -> ``[3, H, W]``.
+  """
+  out = plain_render(planes.permute(0, 2, 3, 1), homs[None])
+  return out[0].permute(2, 0, 1)
+
+
+def _reference_render_batch(planes: torch.Tensor,
+                            homs: torch.Tensor) -> torch.Tensor:
+  """Batched ``reference_render``: ``[B, P, 4, H, W]`` x ``[B, P, 3, 3]`` ->
+  ``[B, 3, H, W]``."""
+  return plain_render(planes.permute(0, 1, 3, 4, 2), homs).permute(0, 3, 1, 2)
+
+
+def _check(planes: torch.Tensor, homs: torch.Tensor) -> tuple[int, int]:
+  """Validate shapes and types; returns ``(views, planes)``."""
+  if planes.dtype != torch.float32 or homs.dtype != torch.float32:
+    raise TypeError(f"planes and homs must be float32, got {planes.dtype} "
+                    f"and {homs.dtype}")
+  if planes.dim() not in (4, 5) or planes.shape[-1] != 4:
+    raise ValueError(
+        f"planes must be [P, H, W, 4] or [V, P, H, W, 4], got "
+        f"{tuple(planes.shape)}")
+  if homs.dim() != 4 or homs.shape[-2:] != (3, 3):
+    raise ValueError(f"homs must be [V, P, 3, 3], got {tuple(homs.shape)}")
+  views, num_planes = homs.shape[0], homs.shape[1]
+  if planes.shape[-4] != num_planes:
+    raise ValueError(f"planes hold {planes.shape[-4]} planes but homs "
+                     f"{num_planes}")
+  if planes.dim() == 5 and planes.shape[0] != views:
+    raise ValueError(f"planes hold {planes.shape[0]} views but homs {views}")
+  if views < 1 or num_planes < 1 or planes.shape[-3] < 1 or planes.shape[-2] < 1:
+    raise ValueError("empty render: views, planes, H and W must be >= 1")
+  return views, num_planes
+
+
+def render_mpi_fused(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
+  """Render views of an MPI in one CUDA kernel launch.
+
+  Args:
+    planes: ``[P, H, W, 4]`` float32 RGBA planes, back-to-front, shared by
+      every view (the kernel reads them with a view stride of 0), or
+      ``[V, P, H, W, 4]`` with one scene per view. Channels-last, unlike
+      the JAX kernels' planar ``[P, 4, H, W]``: one bilinear tap is one
+      16-byte load. Contiguous.
+    homs: ``[V, P, 3, 3]`` float32 target-pixel -> source-pixel
+      homographies (``pixel_homographies(...).transpose(0, 1)``),
+      contiguous.
+
+  Returns:
+    ``[V, H, W, 3]`` float32.
+
+  CUDA tensors launch the kernel on the current stream (no synchronise)
+  and count the launch in ``render_mpi_fused.launches``; CPU tensors run
+  ``plain_render``. Anything else — mixed devices, other dtypes, shapes,
+  non-contiguous or misaligned (not 16-byte) planes on the card, a missing
+  ``nvcc``, a failed build or launch — raises.
+  """
+  views, num_planes = _check(planes, homs)
+  if planes.device.type == "cpu" and homs.device.type == "cpu":
+    return plain_render(planes, homs)
+  if planes.device.type != "cuda" or homs.device != planes.device:
+    raise ValueError(f"planes ({planes.device}) and homs ({homs.device}) "
+                     "must both be on one CUDA device, or both on the CPU")
+  if not (planes.is_contiguous() and homs.is_contiguous()):
+    raise ValueError("planes and homs must be contiguous for the kernel")
+  if planes.data_ptr() % 16:
+    raise ValueError("planes must start on a 16-byte boundary: the kernel "
+                     "reads one RGBA tap as one float4")
+  if num_planes > MAX_PLANES:
+    raise ValueError(f"{num_planes} planes exceed the kernel's "
+                     f"{MAX_PLANES}-plane shared-memory budget")
+  if views > MAX_VIEWS:
+    raise ValueError(f"{views} views exceed the kernel's {MAX_VIEWS}")
+  height, width = planes.shape[-3], planes.shape[-2]
+  out = torch.empty((views, height, width, 3), dtype=torch.float32,
+                    device=planes.device)
+  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
+  from mpi_vision_tpu_torch.kernels import _build
+
+  lib = _build.load(KERNEL, _SIGNATURES)
+  err = lib.mpi_render_fused(
+      planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
+      height, width, view_stride, planes.device.index,
+      torch.cuda.current_stream(planes.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
+  with _count_lock:
+    render_mpi_fused.launches += 1
+  return out
+
+
+render_mpi_fused.launches = 0
+
+

@@ -1,0 +1,118 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no quiet CPU.
+
+``mpi_vision_tpu_torch`` and ``chip_smoke.py`` import ``torch``, numpy and
+the standard library only (the JAX package is the reference the port is
+held to, never a dependency of it), and its entry points run on the card
+unless the caller asks for the CPU by name.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_vision_tpu_torch import device as device_mod
+from mpi_vision_tpu_torch.serve import (
+    RenderEngine,
+    RenderService,
+    bake_scene,
+    synthetic_scene,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mpi_vision_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "mpi_vision_tpu")
+
+
+def _port_modules() -> list[str]:
+  mods = []
+  for path in sorted(PORT.rglob("*.py")):
+    rel = path.relative_to(ROOT).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__main__":
+      continue
+    if parts[-1] == "__init__":
+      parts = parts[:-1]
+    mods.append(".".join(parts))
+  return mods
+
+
+def _forbidden(name: str) -> bool:
+  return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_every_module_imports_with_jax_and_the_jax_package_blocked():
+  code = (
+      "import sys\n"
+      "def loaded():\n"
+      "  return {m for m, mod in sys.modules.items() if mod is not None\n"
+      "          and m.split('.')[0] in ('jax', 'jaxlib', 'mpi_vision_tpu')}\n"
+      "before = loaded()\n"
+      "for name in ('jax', 'jaxlib', 'mpi_vision_tpu'):\n"
+      "  sys.modules[name] = None\n"
+      "import importlib\n"
+      f"names = {_port_modules()!r}\n"
+      "for name in names:\n"
+      "  importlib.import_module(name)\n"
+      "import chip_smoke\n"
+      "bad = sorted(loaded() - before)\n"
+      "assert not bad, bad\n"
+      "print('ok', len(names))\n")
+  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+  env["PYTHONPATH"] = str(ROOT)
+  proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=240)
+  assert proc.returncode == 0, proc.stderr[-4000:]
+  assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_no_jax_import_in_source(path):
+  tree = ast.parse((ROOT / path).read_text(), filename=path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      names = [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom):
+      names = [node.module or ""] if node.level == 0 else []
+    else:
+      continue
+    bad = [n for n in names if _forbidden(n)]
+    assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    RenderEngine()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    RenderService()
+  rgba, depths, k = synthetic_scene("s", 8, 8, 2)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    bake_scene("s", rgba, depths, k)
+  with pytest.raises(ValueError, match="cuda or cpu"):
+    device_mod.resolve_device("meta")
+  assert RenderEngine(device="cpu").platform == "cpu"
+  assert bake_scene("s", rgba, depths, k, device="cpu").planes.device.type \
+      == "cpu"
+  assert np.isfinite(RenderEngine(device="cpu").render_one(
+      bake_scene("s", rgba, depths, k, device="cpu"),
+      np.eye(4, dtype=np.float32))).all()
+
+
+def test_kernel_build_is_lazy():
+  """Importing the kernel modules builds nothing; the library path is
+  keyed by the source and the flags."""
+  from mpi_vision_tpu_torch.kernels import _build
+
+  assert "render_fused" in _build.sources()
+  path = _build.library_path("render_fused")
+  assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
+  assert "-fmad=false" in _build.NVCC_FLAGS
+  assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
