@@ -32,6 +32,28 @@ Phases:
      memory (CUDA events), the scheduler's per-frame host copies of one
      8-view flight (host clock), renders/s through the service, and the
      engine's own batch time (host clock) beside the kernel's.
+  6. backward kernels vs plain versions at 1080p x 32 planes on the five
+     pose classes, with a seeded gradient: kernel A (re-warp + composite
+     VJP) and kernel B (warp transpose) each within 1e-4 of its plain
+     version; two backward runs bit-identical; the gradient through
+     ``render_mpi_fused``'s autograd Function equal to the kernels' and
+     nonzero; one scene under 3 views (view stride 0) against the sum of
+     three single-view backwards (540p); one scene per view at a small
+     size; planes that cross the camera's plane counted, and a pose whose
+     planes do (65 degree pan) checked at a small size.
+  7. train (the slice's main path): ``python -m mpi_vision_tpu_torch
+     train``'s code path in process at ``TrainConfig()`` (224 px, 10
+     planes, the full-width U-Net, VGG loss) on the card, one epoch over 8
+     synthetic scenes, launch counts zeroed just before and read just
+     after: every loss finite, each step launched the forward kernel and
+     both backward kernels, no plain version ran. Then, on one batch, the
+     step's loss and its gradients with the kernel backward against the
+     plain backward (planes within 1e-4 of max |grad|, conv weights under
+     ``cudnn.deterministic``), and times: the backward kernels at 1080p x
+     32 (V = 1, 8) beside their plain versions, the library call and the
+     bound; the train step and its split (the profiler's busy time of the
+     U-Net, render forward, kernels A and B, VGG loss, optimizer) and the
+     card's busy share over steps.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -43,6 +65,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -55,9 +78,25 @@ TOL = 1e-4
 # outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-REPLACES = "mpi_vision_tpu/kernels/render_pallas.py:271"
-ALSO_REPLACES = ["mpi_vision_tpu/kernels/render_pallas.py:426",
-                 "mpi_vision_tpu/kernels/render_pallas.py:847"]
+# Each CUDA kernel and the TPU kernels (file:line of the Pallas kernel
+# function) it replaces, the first named as "replaces".
+REPLACES = {
+    "render_fused": ["mpi_vision_tpu/kernels/render_pallas.py:271",
+                     "mpi_vision_tpu/kernels/render_pallas.py:426",
+                     "mpi_vision_tpu/kernels/render_pallas.py:847"],
+    "rewarp_composite_vjp": ["mpi_vision_tpu/kernels/render_pallas_bwd.py:61",
+                             "mpi_vision_tpu/kernels/render_pallas_bwd.py:120"],
+    "adjoint_warp": ["mpi_vision_tpu/kernels/render_pallas_bwd.py:263",
+                     "mpi_vision_tpu/kernels/render_pallas_bwd.py:529"],
+}
+SOURCES = {
+    "render_fused": "mpi_vision_tpu_torch/kernels/csrc/render_fused.cu",
+    "rewarp_composite_vjp":
+        "mpi_vision_tpu_torch/kernels/csrc/render_fused_bwd.cu",
+    "adjoint_warp": "mpi_vision_tpu_torch/kernels/csrc/render_fused_bwd.cu",
+}
+# Phase 7: one epoch over this many synthetic scenes is this many steps.
+TRAIN_STEPS = 8
 
 
 class SmokeError(RuntimeError):
@@ -126,6 +165,14 @@ def host_ms(fn, reps: int) -> float:
   return statistics.median(times)
 
 
+def least_ms(nbytes: float, ops: float) -> tuple[float, str]:
+  """The larger of bytes over the HBM rate and f32 operations over the f32
+  peak, in ms, and which of the two it is."""
+  t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+  return (max(t_bytes, t_ops) * 1e3,
+          "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(views: int) -> tuple[float, str]:
   """Least time (ms) for ``views`` renders of one resident scene: every
   input byte read once, every output byte written once, against the
@@ -134,18 +181,63 @@ def bound(views: int) -> tuple[float, str]:
 
   nbytes = (PLANES * HEIGHT * WIDTH * 16 + views * PLANES * 9 * 4
             + views * HEIGHT * WIDTH * 3 * 4)
-  ops = views * HEIGHT * WIDTH * PLANES * render_fused.FLOPS_PER_SAMPLE
-  t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-  return (max(t_bytes, t_ops) * 1e3,
-          "bytes" if t_bytes >= t_ops else "operations")
+  return least_ms(nbytes,
+                  views * HEIGHT * WIDTH * PLANES * render_fused.FLOPS_PER_SAMPLE)
 
 
-def device_activity(torch, fn) -> dict:
+def bwd_bounds(views: int, planes: int = PLANES, height: int = HEIGHT,
+               width: int = WIDTH) -> dict:
+  """Least times (ms) of the two backward kernels for ``views`` views of
+  one scene. A: read the scene, the homographies and g once, write
+  dwarped. B: read dwarped and the homographies, write d planes (one
+  scene). Operations: ``FLOPS_A`` / ``FLOPS_B`` per target pixel, plane
+  and view."""
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+
+  scene = planes * height * width * 16
+  homs = views * planes * 9 * 4
+  samples = views * planes * height * width
+  a = least_ms(scene + homs + views * height * width * 12 + views * scene,
+               samples * rb.FLOPS_A)
+  b = least_ms(views * scene + homs + scene, samples * rb.FLOPS_B)
+  return {"rewarp_composite_vjp": a, "adjoint_warp": b,
+          "pair_ms": least_ms(scene + homs + views * height * width * 12
+                              + 2 * views * scene + scene,
+                              samples * (rb.FLOPS_A + rb.FLOPS_B))[0]}
+
+
+def homs_at(torch, dev, poses: np.ndarray, planes: int, height: int,
+            width: int):
+  """``[V, P, 3, 3]`` pixel homographies of ``poses`` for a 1080p-shaped
+  camera (focal 0.5 W) at ``height`` x ``width``, EXACT convention."""
+  from mpi_vision_tpu_torch.core.camera import intrinsics_matrix, inv_depths
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import render_fused
+
+  k = intrinsics_matrix(0.5 * width, 0.5 * width, width / 2.0, height / 2.0,
+                        device=dev)
+  pt = torch.from_numpy(np.ascontiguousarray(poses)).to(dev)
+  return render_fused.pixel_homographies(
+      pt, inv_depths(1.0, 100.0, planes, device=dev),
+      k.expand(len(poses), 3, 3), height, width,
+      Convention.EXACT).transpose(0, 1).contiguous()
+
+
+SERVE_KINDS = (("kernel_s", "render_fused"), ("d2h_s", "DtoH"),
+               ("h2d_s", "HtoD"))
+TRAIN_KINDS = (("render_fused_s", "render_fused_kernel"),
+               ("rewarp_composite_vjp_s", "rewarp_composite_vjp_kernel"),
+               ("adjoint_warp_s", "adjoint_warp_kernel"),
+               ("h2d_s", "HtoD"), ("d2h_s", "DtoH"))
+
+
+def device_activity(torch, fn, kinds=SERVE_KINDS) -> dict:
   """Run ``fn()`` under ``torch.profiler`` (CUDA activity only) and split
   the card's busy time: the union of every device interval, and the summed
-  durations of the render kernel, device-to-host and host-to-device copies
-  and everything else. ``busy_share`` is the union over the host-clock wall
-  time of ``fn()``; None where the profiler saw no device activity."""
+  durations of the events whose names hold each of ``kinds``' substrings
+  (first match wins) and of everything else. ``busy_share`` is the union
+  over the host-clock wall time of ``fn()``; None where the profiler saw no
+  device activity."""
   from torch.profiler import ProfilerActivity, profile
 
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -156,14 +248,21 @@ def device_activity(torch, fn) -> dict:
   spans = [(e.time_range.start, e.time_range.end, e.name)
            for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-  kinds = {"kernel_s": 0.0, "d2h_s": 0.0, "h2d_s": 0.0, "other_s": 0.0}
+  split = {kind: 0.0 for kind, _ in kinds}
+  split["other_s"] = 0.0
   for start, end, name in spans:
-    kind = ("kernel_s" if "render_fused" in name
-            else "d2h_s" if "DtoH" in name
-            else "h2d_s" if "HtoD" in name else "other_s")
-    kinds[kind] += (end - start) * 1e-6
+    kind = next((k for k, sub in kinds if sub in name), "other_s")
+    split[kind] += (end - start) * 1e-6
+  busy_s = union_us(spans) * 1e-6
+  return {"wall_s": wall, "events": len(spans),
+          "busy_s": busy_s if spans else None,
+          "busy_share": busy_s / wall if spans else None, **split}
+
+
+def union_us(spans) -> float:
+  """Length of the union of ``(start, end, ...)`` intervals (µs)."""
   busy, cur_start, cur_end = 0.0, None, None
-  for start, end, _ in sorted(spans):
+  for start, end, *_ in sorted(spans):
     if cur_end is None or start > cur_end:
       if cur_end is not None:
         busy += cur_end - cur_start
@@ -172,10 +271,360 @@ def device_activity(torch, fn) -> dict:
       cur_end = max(cur_end, end)
   if cur_end is not None:
     busy += cur_end - cur_start
-  busy_s = busy * 1e-6
-  return {"wall_s": wall, "events": len(spans),
-          "busy_s": busy_s if spans else None,
-          "busy_share": busy_s / wall if spans else None, **kinds}
+  return busy
+
+
+def device_busy_by_piece(torch, pieces: dict) -> dict:
+  """Run each of ``pieces`` once, in turn, under one ``torch.profiler``
+  session (CPU and CUDA activity), each inside a ``record_function`` range
+  that ends after a synchronise; the card's busy time (ms) of each piece is
+  the union of the device intervals that start inside its range. None
+  where the profiler saw none."""
+  from torch.profiler import ProfilerActivity, profile, record_function
+
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for name, fn in pieces.items():
+      with record_function(f"piece:{name}"):
+        fn()
+        torch.cuda.synchronize()
+  ranges, spans = {}, []
+  for e in prof.events():
+    if e.name.startswith("piece:"):
+      # The GPU-side copy of a range annotation is not device work.
+      if e.device_type == torch.autograd.DeviceType.CPU:
+        ranges[e.name[len("piece:"):]] = (e.time_range.start,
+                                          e.time_range.end)
+    elif e.device_type == torch.autograd.DeviceType.CUDA:
+      spans.append((e.time_range.start, e.time_range.end))
+  busy = {}
+  for name in pieces:
+    lo, hi = ranges.get(name, (0.0, -1.0))
+    inside = [span for span in spans if lo <= span[0] <= hi]
+    busy[name] = union_us(inside) * 1e-3 if inside else None
+  return busy
+
+
+def phase6_backward(torch, dev, planes, classes) -> dict:
+  """Backward kernels vs their plain versions (see the module docstring).
+  Returns the largest error of each kernel."""
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+
+  gen = torch.Generator(device=dev).manual_seed(6)
+  errs = {"rewarp_composite_vjp": 0.0, "adjoint_warp": 0.0}
+
+  def held(name, got, want):
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite gradient")
+    check(err <= TOL, f"{name}: kernel disagrees with its plain version by "
+          f"{err} > {TOL}")
+    return err
+
+  crossing = {}
+  for name, pose in classes.items():
+    homs = homs_at(torch, dev, pose[None], PLANES, HEIGHT, WIDTH)
+    g = torch.randn((1, HEIGHT, WIDTH, 3), generator=gen, device=dev)
+    dwarped = rb.rewarp_composite_vjp(planes, homs, g)
+    err_a = held(f"A [{name}]", dwarped,
+                 rb.plain_rewarp_composite_vjp(planes, homs, g))
+    dplanes = rb.adjoint_warp(dwarped, homs, shared=True)
+    err_b = held(f"B [{name}]", dplanes,
+                 rb.plain_adjoint_warp(dwarped, homs, shared=True))
+    errs["rewarp_composite_vjp"] = max(errs["rewarp_composite_vjp"], err_a)
+    errs["adjoint_warp"] = max(errs["adjoint_warp"], err_b)
+    crossing[name] = rb.sign_changing_planes(homs, HEIGHT, WIDTH)
+    log(f"backward vs plain [{name}]: A max_abs_err {err_a:.3e}, B "
+        f"max_abs_err {err_b:.3e}, max |d planes| "
+        f"{float(dplanes.abs().max()):.3e}, planes crossing the camera "
+        f"plane {crossing[name]}")
+    if name == "pan_30deg":
+      check(torch.equal(dplanes, rb.backward_planes(planes, homs, g)),
+            "two backward runs differ")
+      leaf = planes.clone().requires_grad_(True)
+      (render_fused.render_mpi_fused(leaf, homs) * g).sum().backward()
+      check(torch.equal(leaf.grad, dplanes),
+            "the autograd Function's gradient is not the kernels'")
+      check(float(leaf.grad.abs().max()) > 0, "zero gradient to the planes")
+      log("backward: two runs bit-identical; render_mpi_fused's autograd "
+          "gradient == kernels A + B, nonzero")
+      del leaf
+    del dwarped, dplanes
+  log(f"backward: planes crossing the camera plane per pose class "
+      f"{json.dumps(crossing)}")
+
+  # One scene under three views (view stride 0) vs three single views.
+  p5, h5, w5 = PLANES, HEIGHT // 2, WIDTH // 2
+  scene = torch.rand((p5, h5, w5, 4), generator=gen, device=dev)
+  poses3 = np.stack([classes[n] for n in ("translation_dolly", "pan_10deg",
+                                          "pan_30deg")])
+  homs3 = homs_at(torch, dev, poses3, p5, h5, w5)
+  g3 = torch.randn((3, h5, w5, 3), generator=gen, device=dev)
+  shared = rb.backward_planes(scene, homs3, g3)
+  summed = sum(rb.backward_planes(scene, homs3[v:v + 1].contiguous(),
+                                  g3[v:v + 1].contiguous()) for v in range(3))
+  err_shared = float((shared - summed).abs().max())
+  log(f"backward: 3 views of one scene vs the sum of 3 single views "
+      f"({h5}x{w5}x{p5}): max_abs_err {err_shared:.3e}")
+  check(err_shared <= TOL, f"shared-scene backward: {err_shared}")
+  del scene, shared, summed
+
+  # One scene per view (view stride != 0), and planes crossing the camera
+  # plane (the whole-image candidate scan), at small sizes.
+  for label, poses, (sp, sh, sw) in (
+      ("one scene per view", np.stack([classes["pan_1deg"],
+                                       classes["pan_10deg"]]), (8, 256, 384)),
+      ("65 degree pan", pan_pose(65.0)[None], (4, 48, 64))):
+    homs = homs_at(torch, dev, poses, sp, sh, sw)
+    views = len(poses)
+    scenes = torch.rand(((views, sp, sh, sw, 4) if views > 1
+                         else (sp, sh, sw, 4)), generator=gen, device=dev)
+    g = torch.randn((views, sh, sw, 3), generator=gen, device=dev)
+    dwarped = rb.rewarp_composite_vjp(scenes, homs, g)
+    err_a = held(f"A [{label}]", dwarped,
+                 rb.plain_rewarp_composite_vjp(scenes, homs, g))
+    err_b = held(f"B [{label}]",
+                 rb.adjoint_warp(dwarped, homs, shared=views == 1),
+                 rb.plain_adjoint_warp(dwarped, homs, shared=views == 1))
+    n_cross = rb.sign_changing_planes(homs, sh, sw)
+    log(f"backward vs plain [{label}, {sh}x{sw}x{sp}]: A {err_a:.3e}, B "
+        f"{err_b:.3e}, planes crossing the camera plane {n_cross}")
+    if label == "65 degree pan":
+      check(n_cross > 0, "the crossing pose crosses no plane")
+    errs["rewarp_composite_vjp"] = max(errs["rewarp_composite_vjp"], err_a)
+    errs["adjoint_warp"] = max(errs["adjoint_warp"], err_b)
+  return errs
+
+
+def phase7_train(torch, dev, workdir: str) -> dict:
+  """The slice's main path, then the step's gradient check and its times
+  (see the module docstring)."""
+  import PIL
+
+  from mpi_vision_tpu_torch import cli, config
+  from mpi_vision_tpu_torch.core import geometry
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.models.stereo_mag import mpi_from_net_output
+  from mpi_vision_tpu_torch.train import loop as train_loop
+  from mpi_vision_tpu_torch.train import loss as loss_lib
+
+  root = os.path.join(workdir, "re10k")
+  args = cli.build_parser().parse_args(
+      ["train", "--synthetic", "--synthetic-scenes", str(TRAIN_STEPS),
+       "--epochs", "1", "--dataset", root, "--device", "cuda"])
+  cfg = config.TrainConfig()
+  check((args.img_size, args.num_planes, args.lr, args.vgg_resize)
+        == (cfg.data.img_size, cfg.data.num_planes, cfg.learning_rate,
+            cfg.vgg_resize) and args.vgg_loss and args.planned_render,
+        "the train CLI's defaults are not TrainConfig()")
+  log(f"train: data route synthesize_dataset -> RealEstateDataset "
+      f"(Pillow {PIL.__version__}), {TRAIN_STEPS} scenes at "
+      f"{args.img_size}px, {args.num_planes} planes")
+  counters = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+              rb.adjoint_warp)
+  plains = (render_fused.plain_render, rb.plain_rewarp_composite_vjp,
+            rb.plain_adjoint_warp)
+  for fn in counters:
+    fn.launches = 0
+  for fn in plains:
+    fn.calls = 0
+  t0 = time.perf_counter()
+  summary = cli.cmd_train(args)
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t0
+  launches = {fn.__name__: fn.launches for fn in counters}
+  plain_calls = {fn.__name__: fn.calls for fn in plains}
+  log(f"train: summary {json.dumps(summary)} in {train_s:.2f}s; launches "
+      f"{json.dumps(launches)}; plain versions {json.dumps(plain_calls)}; "
+      f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
+  steps = summary["steps"]
+  check(steps == TRAIN_STEPS, f"{steps} train steps, not {TRAIN_STEPS}")
+  check(summary["nonfinite_losses"] == 0
+        and np.isfinite([summary["first_loss"], summary["final_loss"],
+                         summary["final_valid_loss"]]).all(),
+        f"non-finite losses: {summary}")
+  check(launches["rewarp_composite_vjp"] == steps
+        and launches["adjoint_warp"] == steps,
+        f"a step did not launch both backward kernels: {launches}")
+  # The forward kernel renders every train step and every valid example.
+  check(launches["render_mpi_fused"] == steps + TRAIN_STEPS,
+        f"the forward kernel did not render every step: {launches}")
+  check(not any(plain_calls.values()),
+        f"a plain version ran on the train path: {plain_calls}")
+  check(not torch.backends.cudnn.allow_tf32, "the trainer left TF32 on")
+
+  # One batch at TrainConfig(), the loss split at the render's input.
+  cfg = config.TrainConfig(data=config.DataConfig(dataset_path=root))
+  state = cfg.make_train_state(0, dev)
+  vgg = cfg.make_vgg(dev)
+  batch = next(realestate.iterate_batches(
+      cfg.data.make_dataset(rng=np.random.default_rng(0), device=dev),
+      rng=np.random.default_rng(1)))
+  size = cfg.data.img_size
+  rel = geometry.matmul_small(batch["tgt_img_cfw"], batch["ref_img_wfc"])
+  homs = render_fused.pixel_homographies(
+      rel, batch["mpi_planes"][0], batch["intrinsics"], size, size,
+      Convention.REF_HOMOGRAPHY).transpose(0, 1).contiguous()
+  params = list(state.model.parameters())
+
+  def net_planes():
+    pred = state.model(batch["net_input"])
+    rgba = mpi_from_net_output(pred, batch["ref_img"])    # [1,H,W,P,4]
+    return pred, rgba[0].movedim(2, 0).contiguous()        # [P,H,W,4]
+
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    _, planes = net_planes()
+    grads, losses = {}, {}
+    for route in ("kernel", "plain"):
+      leaf = planes.detach().requires_grad_(True)
+      out = (render_fused.render_mpi_fused(leaf, homs) if route == "kernel"
+             else render_fused.plain_render(leaf.detach(), homs))
+      out = out.detach().requires_grad_(True)
+      loss = loss_lib.perceptual_loss(out, batch["tgt_img"], vgg,
+                                      cfg.vgg_resize)
+      loss.backward()
+      g = out.grad.contiguous()
+      dplanes = (rb.backward_planes(leaf.detach(), homs, g)
+                 if route == "kernel" else rb.plain_adjoint_warp(
+                     rb.plain_rewarp_composite_vjp(leaf.detach(), homs, g),
+                     homs, shared=True))
+      weights = torch.autograd.grad(planes, params, dplanes,
+                                    retain_graph=True)
+      grads[route], losses[route] = (dplanes, weights), loss.item()
+    with torch.no_grad():
+      full = float(train_loop.make_loss_fn(vgg, cfg.vgg_resize,
+                                           "fused_pallas")(state.model, batch))
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  scale = float(grads["plain"][0].abs().max())
+  err_planes = float((grads["kernel"][0] - grads["plain"][0]).abs().max())
+  err_weights = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    for a, b in zip(grads["kernel"][1], grads["plain"][1]))
+  log(f"train: one step's loss kernel {losses['kernel']!r} plain "
+      f"{losses['plain']!r}; d planes max_abs_err {err_planes:.3e} of max "
+      f"{scale:.3e}; conv-weight gradients (cudnn.deterministic) max "
+      f"relative err {err_weights:.3e}")
+  check(losses["kernel"] == losses["plain"] == full,
+        f"the losses differ: split {losses}, the train step's own {full!r}")
+  check(scale > 0, "no gradient reaches the planes")
+  check(err_planes <= 1e-4 * scale, f"d planes differ by {err_planes}")
+  check(err_weights <= 1e-4, f"conv-weight gradients differ: {err_weights}")
+  return {"launches": launches, "summary": summary, "train_s": train_s,
+          "state": state, "vgg": vgg, "batch": batch, "homs": homs,
+          "net_planes": net_planes, "cfg": cfg}
+
+
+def train_times(torch, step_run) -> dict:
+  """The train step at TrainConfig() and its split (see the docstring)."""
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.train import loss as loss_lib
+
+  state, vgg, batch, homs = (step_run[k] for k in ("state", "vgg", "batch",
+                                                    "homs"))
+  cfg = step_run["cfg"]
+  step = cfg.make_train_step(vgg)
+
+  def one_step():
+    step(state, batch)
+    torch.cuda.synchronize()
+
+  step_ms = host_ms(one_step, 10)
+  pred, planes = step_run["net_planes"]()
+  pred_grad = torch.randn_like(pred)
+
+  def unet():
+    state.model(batch["net_input"]).backward(pred_grad)
+
+  planes = planes.detach()
+  out = render_fused.render_mpi_fused(planes, homs)
+  g = torch.randn_like(out)
+  dwarped = rb.rewarp_composite_vjp(planes, homs, g)
+  leaf = out.detach().requires_grad_(True)
+
+  def vgg_loss():
+    loss_lib.perceptual_loss(leaf, batch["tgt_img"], vgg,
+                             cfg.vgg_resize).backward()
+
+  pieces = {
+      "unet_fwd_bwd": unet,
+      "render_fwd": lambda: render_fused.render_mpi_fused(planes, homs),
+      "render_bwd_a": lambda: rb.rewarp_composite_vjp(planes, homs, g),
+      "render_bwd_b": lambda: rb.adjoint_warp(dwarped, homs, shared=True),
+      "vgg_fwd_bwd": vgg_loss,
+      "optimizer": state.optimizer.step,
+  }
+  for fn in pieces.values():  # warm: cuDNN plans, allocator, Adam state
+    fn()
+  # The profiler's busy time of one run of each piece; CUDA events around
+  # a piece would also count the card's idle gaps while the host enqueues.
+  busy = device_busy_by_piece(torch, pieces)
+  activity = device_activity(
+      torch, lambda: [step(state, batch) for _ in range(5)], TRAIN_KINDS)
+  return {"step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+          "split_device_busy_ms": busy,
+          "profiled_5_steps": activity}
+
+
+def backward_times(torch, dev, planes) -> dict:
+  """Kernels A and B at 1080p x 32, V = 1 and 8 (CUDA events), their plain
+  versions, the library call and the bounds."""
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+
+  gen = torch.Generator(device=dev).manual_seed(5)
+  grid, scale = render_fused.pixel_grid(HEIGHT, WIDTH, dev)
+  out = {}
+  for views in (1, 8):
+    poses = np.stack([pan_pose(1.0 * i, 0.01 * i, -0.01 * i)
+                      for i in range(views)])
+    homs = homs_at(torch, dev, poses, PLANES, HEIGHT, WIDTH)
+    g = torch.randn((views, HEIGHT, WIDTH, 3), generator=gen, device=dev)
+    dwarped = rb.rewarp_composite_vjp(planes, homs, g)
+    row = {
+        "a_ms": cuda_ms(torch, lambda: rb.rewarp_composite_vjp(
+            planes, homs, g), 10, warm=2),
+        "b_ms": cuda_ms(torch, lambda: rb.adjoint_warp(
+            dwarped, homs, shared=True), 10, warm=2),
+        "plain_a_ms": cuda_ms(torch, lambda: rb.plain_rewarp_composite_vjp(
+            planes, homs, g), 1, warm=0),
+        "plain_b_ms": cuda_ms(torch, lambda: rb.plain_adjoint_warp(
+            dwarped, homs, shared=True), 1, warm=0),
+    }
+    dplanes = rb.adjoint_warp(dwarped, homs, shared=True)
+    # The library yardstick: grid_sample's input gradient at the same
+    # shapes (one image per view and plane, NCHW; atomic scatter).
+    grad_out = dwarped.reshape(views * PLANES, HEIGHT, WIDTH, 4).permute(
+        0, 3, 1, 2).contiguous()
+    del dwarped
+    images = planes.permute(0, 3, 1, 2).repeat(views, 1, 1, 1)
+    coords = torch.stack([render_fused.sample_coords(homs[v], grid, scale)
+                          for v in range(views)]).reshape(
+                              views * PLANES, HEIGHT, WIDTH, 2)
+    grid_n = coords * 2.0 - 1.0
+    del coords
+
+    def library():
+      return torch.ops.aten.grid_sampler_2d_backward(
+          grad_out, images, grid_n, 0, 0, False, [True, False])[0]
+
+    row["library_ms"] = cuda_ms(torch, library, 5, warm=1)
+    lib = library().reshape(views, PLANES, 4, HEIGHT, WIDTH).sum(0)
+    row["library_vs_kernel_max_abs"] = float(
+        (lib.permute(0, 2, 3, 1) - dplanes).abs().max())
+    del grad_out, images, grid_n, lib, dplanes
+    bounds = bwd_bounds(views)
+    for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
+      row[f"bound_{key}_ms"], row[f"bound_{key}_by"] = bounds[name]
+    row["bound_pair_ms"] = bounds["pair_ms"]
+    out[f"v{views}"] = row
+    torch.cuda.empty_cache()
+  return out
 
 
 def main() -> int:
@@ -187,7 +636,6 @@ def main() -> int:
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
   try:
     from mpi_vision_tpu_torch.core import render
-    from mpi_vision_tpu_torch.core.camera import intrinsics_matrix, inv_depths
     from mpi_vision_tpu_torch.core.sampling import Convention
     from mpi_vision_tpu_torch.kernels import _build, render_fused
     from mpi_vision_tpu_torch.serve import RenderService, make_http_server
@@ -220,16 +668,9 @@ def main() -> int:
   # -- 3. kernel vs plain version ----------------------------------------
   gen = torch.Generator(device=dev).manual_seed(0)
   planes = torch.rand((PLANES, HEIGHT, WIDTH, 4), generator=gen, device=dev)
-  depths = inv_depths(1.0, 100.0, PLANES, device=dev)
-  k = intrinsics_matrix(0.5 * WIDTH, 0.5 * WIDTH, WIDTH / 2.0, HEIGHT / 2.0,
-                        device=dev)
 
   def homs_for(poses: np.ndarray) -> torch.Tensor:
-    pt = torch.from_numpy(np.ascontiguousarray(poses)).to(dev)
-    h = render_fused.pixel_homographies(
-        pt, depths, k.expand(len(poses), 3, 3), HEIGHT, WIDTH,
-        Convention.EXACT)
-    return h.transpose(0, 1).contiguous()               # [V, P, 3, 3]
+    return homs_at(torch, dev, poses, PLANES, HEIGHT, WIDTH)
 
   classes = pose_classes()
   errs, singles, separable = {}, [], {}
@@ -265,12 +706,8 @@ def main() -> int:
   # One scene per view: the view-stride path, at a small size.
   sp, sh, sw = 8, 256, 384
   scenes = torch.rand((2, sp, sh, sw, 4), generator=gen, device=dev)
-  sk = intrinsics_matrix(0.5 * sw, 0.5 * sw, sw / 2.0, sh / 2.0, device=dev)
-  spose = torch.from_numpy(np.stack([classes["pan_1deg"],
-                                     classes["pan_10deg"]])).to(dev)
-  shoms = render_fused.pixel_homographies(
-      spose, inv_depths(1.0, 100.0, sp, device=dev), sk.expand(2, 3, 3),
-      sh, sw, Convention.EXACT).transpose(0, 1).contiguous()
+  shoms = homs_at(torch, dev, np.stack([classes["pan_1deg"],
+                                        classes["pan_10deg"]]), sp, sh, sw)
   err_stride = float((render_fused.render_mpi_fused(scenes, shoms)
                       - render_fused.plain_render(scenes, shoms)).abs().max())
   log(f"kernel vs plain [one scene per view]: max_abs_err {err_stride:.3e}")
@@ -460,22 +897,43 @@ def main() -> int:
   }
   log(json.dumps({"times": times}))
 
+  # -- 6. backward kernels vs plain versions -------------------------------
+  bwd_errs = phase6_backward(torch, dev, planes, classes)
+
+  # -- 7. train: the slice's main path --------------------------------------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+    run = phase7_train(torch, dev, workdir)
+    bwd_times = backward_times(torch, dev, planes)
+    step_times = train_times(torch, run)
+  train_launches = run["launches"]
+  log(json.dumps({"times_train": {
+      "card": card,
+      "conv_tf32": torch.backends.cudnn.allow_tf32,
+      "backward_1080p_x32": bwd_times,
+      "train_step_224px_x10": step_times,
+      "train_cli_s": run["train_s"],
+      "seconds_total": time.perf_counter() - t_start,
+  }}))
+
   # -- result lines --------------------------------------------------------
-  print(json.dumps({"kernels": [{
-      "name": "render_fused",
-      "route": "cuda",
-      "source": "mpi_vision_tpu_torch/kernels/csrc/render_fused.cu",
-      "replaces": REPLACES,
-      "also_replaces": ALSO_REPLACES,
-      "launches": launches,
-      "max_abs_err": max_err,
-      "views": 8,
-      "ms": ms8,
-      "plain_ms": plain8,
-      "bound_ms": b8,
-      "bound_by": by8,
-      "library_ms": None,
-  }]}), flush=True)
+  v1 = bwd_times["v1"]
+  rows = [{"name": "render_fused", "launches": launches,
+           "train_launches": train_launches["render_mpi_fused"],
+           "max_abs_err": max_err, "views": 8, "ms": ms8,
+           "plain_ms": plain8, "bound_ms": b8, "bound_by": by8,
+           "library_ms": None}]
+  for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
+    rows.append({"name": name, "launches": train_launches[name],
+                 "max_abs_err": bwd_errs[name], "views": 1,
+                 "ms": v1[f"{key}_ms"], "plain_ms": v1[f"plain_{key}_ms"],
+                 "bound_ms": v1[f"bound_{key}_ms"],
+                 "bound_by": v1[f"bound_{key}_by"],
+                 "library_ms": v1["library_ms"] if key == "b" else None})
+  print(json.dumps({"kernels": [
+      {"name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
+       "replaces": REPLACES[row["name"]][0],
+       "also_replaces": REPLACES[row["name"]][1:], **row} for row in rows]}),
+      flush=True)
   print(card_line(), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,10 @@
 """Command-line entry point: ``python -m mpi_vision_tpu_torch <command>``.
 
+  * ``train`` — train the stereo-magnification U-Net (train/) on a
+    RealEstate10K-layout dataset or the procedural ``--synthetic`` one, with
+    the VGG-perceptual loss rendered through the CUDA kernels forward and
+    backward (``--planned-render``, the default), on the card
+    (``--device cuda``, the default) or, when asked, the CPU.
   * ``serve`` — run the batched render-serving subsystem (serve/): scene
     cache + micro-batching scheduler + HTTP front end (``/render``,
     ``/healthz``, ``/stats``, ``/debug/traces``) over synthetic scenes, on
@@ -28,6 +33,97 @@ def _write_port_file(path: str, port: int) -> None:
   with open(tmp_path, "w") as fh:
     fh.write(str(port))
   os.replace(tmp_path, path)
+
+
+def cmd_train(args: argparse.Namespace) -> dict:
+  import atexit
+  import tempfile
+
+  import numpy as np
+  import torch
+
+  from mpi_vision_tpu_torch import config
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.device import resolve_device
+  from mpi_vision_tpu_torch.train import loop as train_loop
+
+  device = resolve_device(args.device)
+  root = args.dataset
+  if args.synthetic:
+    if root is None:
+      # No explicit destination: a temp dir removed at exit.
+      tmp_holder = tempfile.TemporaryDirectory(prefix="mpi_synth_")
+      atexit.register(tmp_holder.cleanup)
+      root = tmp_holder.name
+    realestate.synthesize_dataset(
+        root, num_scenes=args.synthetic_scenes, frames=4,
+        img_size=args.img_size, seed=0)
+    _log(f"synthesized dataset at {root}")
+  elif root is None:
+    raise SystemExit("--dataset is required (or pass --synthetic)")
+
+  cfg = config.TrainConfig(
+      data=config.DataConfig(dataset_path=root, img_size=args.img_size,
+                             num_planes=args.num_planes),
+      learning_rate=args.lr, epochs=args.epochs,
+      vgg_resize=args.vgg_resize if args.vgg_resize > 0 else None)
+  cfg.set_precision()
+  state = cfg.make_train_state(args.seed, device)
+  vgg = cfg.make_vgg(device) if args.vgg_loss else None
+  method = "fused_pallas" if args.planned_render else "fused"
+  step = cfg.make_train_step(vgg, method)
+  _log(f"train: {cfg.data.img_size}px x {cfg.data.num_planes} planes on "
+       f"{device}, render method {method}, cuDNN TF32 "
+       f"{torch.backends.cudnn.allow_tf32}")
+
+  # Per-epoch validation on the test split's fixed triplets (the
+  # reference reports train and valid loss each epoch).
+  valid_batches, eval_step = [], None
+  if args.valid:
+    valid_ds = cfg.data.make_dataset(is_valid=True, device=device)
+    if len(valid_ds):
+      valid_batches = list(realestate.iterate_batches(
+          valid_ds, batch_size=cfg.data.batch_size, shuffle=False))
+      eval_step = cfg.make_eval_step(vgg, method)
+    else:
+      _log("valid: test split empty; skipping per-epoch validation")
+
+  dataset = cfg.data.make_dataset(rng=np.random.default_rng(args.seed),
+                                  device=device)
+  order = np.random.default_rng(args.seed + 1)
+  t0 = time.time()
+  all_losses, valid_losses = [], []
+  for epoch in range(cfg.epochs):
+    state, losses = train_loop.fit(
+        state, realestate.prefetch_batches(realestate.iterate_batches(
+            dataset, batch_size=cfg.data.batch_size, rng=order)),
+        step=step)
+    all_losses.extend(losses)
+    if not losses:
+      continue
+    msg = f"epoch {epoch}: train loss {np.mean(losses):.4f}"
+    if valid_batches:
+      valid_losses.append(train_loop.evaluate(state, valid_batches,
+                                              eval_step))
+      msg += f" valid loss {valid_losses[-1]:.4f}"
+    _log(msg + f" ({time.time() - t0:.0f}s elapsed)")
+  if not all_losses:
+    raise SystemExit(
+        "no training steps ran: check --epochs and that the dataset has at "
+        "least batch_size scenes")
+  return {
+      "command": "train",
+      "epochs": cfg.epochs,
+      "steps": len(all_losses),
+      "first_loss": round(all_losses[0], 5),
+      "final_loss": round(all_losses[-1], 5),
+      "nonfinite_losses": int(np.sum(~np.isfinite(all_losses))),
+      **({"first_valid_loss": round(valid_losses[0], 5),
+          "final_valid_loss": round(valid_losses[-1], 5)}
+         if valid_losses else {}),
+      "device": str(device),
+      "seconds": round(time.time() - t0, 1),
+  }
 
 
 def cmd_serve(args: argparse.Namespace) -> dict:
@@ -126,6 +222,38 @@ def build_parser() -> argparse.ArgumentParser:
   ap = argparse.ArgumentParser(prog="mpi_vision_tpu_torch",
                                description=__doc__.splitlines()[0])
   sub = ap.add_subparsers(dest="command", required=True)
+
+  t = sub.add_parser("train", help="train the stereo-magnification model")
+  t.add_argument("--dataset", default=None,
+                 help="RealEstate10K-layout root (see data/realestate.py); "
+                      "with --synthetic, where to write the procedural "
+                      "scenes (default: a temp dir removed at exit)")
+  t.add_argument("--synthetic", action="store_true",
+                 help="train on the procedural dataset instead")
+  t.add_argument("--synthetic-scenes", type=int, default=4)
+  t.add_argument("--img-size", type=int, default=224)
+  t.add_argument("--num-planes", type=int, default=10)
+  t.add_argument("--epochs", type=int, default=20)
+  t.add_argument("--lr", type=float, default=2e-4)
+  t.add_argument("--vgg-loss", action=argparse.BooleanOptionalAction,
+                 default=True, help="VGG-perceptual loss (reference) or L2")
+  t.add_argument("--vgg-resize", type=int, default=224,
+                 help="loss resize; <= 0 disables")
+  t.add_argument("--planned-render", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="render the loss through the CUDA kernels, forward "
+                      "and backward (method fused_pallas); "
+                      "--no-planned-render uses the plain per-plane loop "
+                      "(method fused). On by default, unlike the JAX CLI: "
+                      "the kernels need no per-batch plan")
+  t.add_argument("--valid", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="evaluate the test split's fixed triplets each epoch")
+  t.add_argument("--seed", type=int, default=0)
+  t.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                 help="training device; cuda fails without a card rather "
+                      "than falling back to the CPU")
+  t.set_defaults(fn=cmd_train)
 
   s = sub.add_parser(
       "serve", help="run the batched MPI render-serving subsystem")

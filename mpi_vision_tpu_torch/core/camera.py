@@ -1,7 +1,8 @@
 """Camera intrinsics, depth-plane spacing, and image pre/de-processing.
 
-PyTorch counterpart of the serving-side helpers of
-``mpi_vision_tpu/core/camera.py``.
+PyTorch counterpart of ``mpi_vision_tpu/core/camera.py``: intrinsics,
+depth spacing and the image pre/de-processing the training path uses (the
+crop and space-to-depth helpers are not ported yet).
 """
 
 from __future__ import annotations
@@ -47,3 +48,12 @@ def inv_depths(start_depth: float, end_depth: float, num_depths: int,
                    device=device), interior])
   return torch.sort(depths, descending=True).values
 
+
+def preprocess_image(image: torch.Tensor) -> torch.Tensor:
+  """float [0, 1] -> [-1, 1]."""
+  return image * 2.0 - 1.0
+
+
+def deprocess_image(image: torch.Tensor) -> torch.Tensor:
+  """[-1, 1] -> uint8 [0, 255] (truncating, as ``astype(uint8)``)."""
+  return (((image + 1.0) / 2.0) * 255.0).to(torch.uint8)

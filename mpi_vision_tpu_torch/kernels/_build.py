@@ -8,8 +8,8 @@ package imports on a machine with no ``nvcc`` and no card, where the CPU
 paths never reach this module's loaders.
 
 Libraries land in ``kernels/build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source rebuilds and a stale library is
-never loaded. A missing ``nvcc`` or a failed build raises; nothing falls
+source, the shared headers and the flags, so an edited source rebuilds and
+a stale library is never loaded. A missing ``nvcc`` or a failed build raises; nothing falls
 back to another implementation.
 """
 
@@ -54,9 +54,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-  """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-  digest = hashlib.sha256(
-      (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+  """Where ``csrc/<name>.cu`` builds to: keyed by the source, the shared
+  headers (``csrc/*.cuh``) and the flags."""
+  digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC.glob("*.cuh")):
+    digest.update(header.read_bytes())
+  digest.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

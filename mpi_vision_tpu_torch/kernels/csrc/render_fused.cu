@@ -49,19 +49,12 @@
 
 #include <cuda_runtime.h>
 
+#include "render_sample.cuh"
+
 namespace {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
-
-__device__ __forceinline__ float4 load_tap(const float4* __restrict__ plane,
-                                           int x, int y, int width,
-                                           int height) {
-  if (x < 0 || x >= width || y < 0 || y >= height) {
-    return make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  return __ldg(plane + static_cast<long long>(y) * width + x);
-}
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_fused_kernel(const float4* __restrict__ planes,
@@ -90,38 +83,10 @@ render_fused_kernel(const float4* __restrict__ planes,
 
   float r = 0.f, g = 0.f, b = 0.f;
   for (int p = 0; p < num_planes; ++p) {
-    const float* h = sh_homs + p * 9;
-    float d = h[6] * ox + h[7] * oy + h[8];
-    if (d == 0.f) d = d + 1e-8f;
-    const float u = (h[0] * ox + h[1] * oy + h[2]) / d;
-    const float w = (h[3] * ox + h[4] * oy + h[5]) / d;
-    // Normalised sampler space and back, as the plain version computes it.
-    const float px = ((u + 0.5f) / fw) * fw - 0.5f;
-    const float py = ((w + 0.5f) / fh) * fh - 0.5f;
-
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    // Outside this range all four taps are out of the image (and NaN
-    // fails it), so the sample is the zeros padding; inside it, floor()
-    // fits an int.
-    if (px >= -1.f && px < fw && py >= -1.f && py < fh) {
-      const float x0f = floorf(px);
-      const float y0f = floorf(py);
-      const float wx = px - x0f;
-      const float wy = py - y0f;
-      const int x0 = static_cast<int>(x0f);
-      const int y0 = static_cast<int>(y0f);
-      const float4* plane = scene + plane_size * p;
-      const float4 v00 = load_tap(plane, x0, y0, width, height);
-      const float4 v01 = load_tap(plane, x0 + 1, y0, width, height);
-      const float4 v10 = load_tap(plane, x0, y0 + 1, width, height);
-      const float4 v11 = load_tap(plane, x0 + 1, y0 + 1, width, height);
-      const float ax = 1.f - wx;
-      const float ay = 1.f - wy;
-      s.x = (v00.x * ax + v01.x * wx) * ay + (v10.x * ax + v11.x * wx) * wy;
-      s.y = (v00.y * ax + v01.y * wx) * ay + (v10.y * ax + v11.y * wx) * wy;
-      s.z = (v00.z * ax + v01.z * wx) * ay + (v10.z * ax + v11.z * wx) * wy;
-      s.w = (v00.w * ax + v01.w * wx) * ay + (v10.w * ax + v11.w * wx) * wy;
-    }
+    float px, py;
+    warp_point(sh_homs + p * 9, ox, oy, fw, fh, &px, &py);
+    const float4 s = sample_plane(scene + plane_size * p, px, py, width,
+                                  height);
     if (p == 0) {  // farthest plane: alpha ignored
       r = s.x;
       g = s.y;

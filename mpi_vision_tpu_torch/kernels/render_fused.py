@@ -18,7 +18,9 @@ plan, and no fallback.
     in the JAX package's planar layout, the counterparts of its oracle.
   * ``render_mpi_fused`` — the wrapper: launches the kernel for CUDA
     tensors (``render_mpi_fused.launches`` counts launches), runs
-    ``plain_render`` for CPU tensors, and raises on anything else.
+    ``plain_render`` for CPU tensors, and raises on anything else. It
+    goes through ``_FusedRender``, an autograd ``Function`` whose backward
+    is ``kernels/render_fused_bwd.py``.
 """
 
 from __future__ import annotations
@@ -108,6 +110,24 @@ def is_separable(homs, atol: float = 1e-6) -> bool:
   return bool(np.all(np.abs(h[:, [1, 3, 6, 7]]) <= atol * np.abs(h[:, 8:9])))
 
 
+def pixel_grid(height: int, width: int, device=None):
+  """The target pixel grid ``[H, W, 3]`` (x, y, 1) and the sampler's
+  ``(W, H)`` scale, as ``plain_render`` and the backward's plain versions
+  use them."""
+  grid = geometry.homogeneous_grid(height, width, device=device).permute(1, 2, 0)
+  scale = torch.tensor([width, height], dtype=torch.float32, device=device)
+  return grid, scale
+
+
+def sample_coords(homs: torch.Tensor, grid: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+  """Normalised (0, 1) sampler coords of every target pixel under
+  ``homs [..., 3, 3]``: ``[..., H, W, 2]``. The sampler maps them back by
+  ``px = c * W - 0.5`` — the round trip the kernels evaluate too."""
+  xy = geometry.from_homogeneous(geometry.apply_homography(grid, homs))
+  return (xy + 0.5) / scale
+
+
 def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   """The plain PyTorch version of the kernel, in the kernel's layout.
 
@@ -125,16 +145,12 @@ def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
     plain_render.calls += 1
   shared = planes.dim() == 4
   num_planes, h, w = planes.shape[-4], planes.shape[-3], planes.shape[-2]
-  grid = geometry.homogeneous_grid(h, w, device=planes.device).permute(1, 2, 0)
-  scale = torch.tensor([w, h], dtype=torch.float32, device=planes.device)
+  grid, scale = pixel_grid(h, w, planes.device)
   out = None
   for p in range(num_planes):
-    xy = geometry.from_homogeneous(
-        geometry.apply_homography(grid, homs[:, p]))    # [V, H, W, 2]
-    # The sampler maps (0,1) coords via px = c*W - 0.5; feed it raw pixels.
-    coords = (xy + 0.5) / scale
     plane = planes[p] if shared else planes[:, p]
-    rgba = sampling.bilinear_sample(plane, coords)      # [V, H, W, 4]
+    rgba = sampling.bilinear_sample(
+        plane, sample_coords(homs[:, p], grid, scale))  # [V, H, W, 4]
     if out is None:
       out = rgba[..., :3]  # farthest plane: alpha ignored
     else:
@@ -162,11 +178,35 @@ def _reference_render_batch(planes: torch.Tensor,
   return plain_render(planes.permute(0, 1, 3, 4, 2), homs).permute(0, 3, 1, 2)
 
 
-def _check(planes: torch.Tensor, homs: torch.Tensor) -> tuple[int, int]:
+def _check_float32(name: str, tensors: dict[str, torch.Tensor]) -> None:
+  for key, t in tensors.items():
+    if t.dtype != torch.float32:
+      raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+
+
+def _cuda_ready(name: str, tensors: dict[str, torch.Tensor],
+                aligned: str) -> torch.device:
+  """Device of ``tensors`` for a launch of kernel ``name``, or raise: one
+  CUDA device, contiguous, and ``tensors[aligned]`` (read as float4) on a
+  16-byte boundary. Every wrapper in this package checks with it."""
+  devices = {t.device for t in tensors.values()}
+  if len(devices) != 1 or next(iter(devices)).type != "cuda":
+    raise ValueError(f"{name}: {', '.join(tensors)} must all be on one CUDA "
+                     f"device, or all on the CPU; got "
+                     f"{sorted(map(str, devices))}")
+  for key, t in tensors.items():
+    if not t.is_contiguous():
+      raise ValueError(f"{name}: {key} must be contiguous for the kernel")
+  if tensors[aligned].data_ptr() % 16:
+    raise ValueError(f"{name}: {aligned} must start on a 16-byte boundary: "
+                     "the kernel reads it as float4")
+  return next(iter(devices))
+
+
+def _check(planes: torch.Tensor, homs: torch.Tensor,
+           name: str = "render_mpi_fused") -> tuple[int, int]:
   """Validate shapes and types; returns ``(views, planes)``."""
-  if planes.dtype != torch.float32 or homs.dtype != torch.float32:
-    raise TypeError(f"planes and homs must be float32, got {planes.dtype} "
-                    f"and {homs.dtype}")
+  _check_float32(name, {"planes": planes, "homs": homs})
   if planes.dim() not in (4, 5) or planes.shape[-1] != 4:
     raise ValueError(
         f"planes must be [P, H, W, 4] or [V, P, H, W, 4], got "
@@ -184,8 +224,74 @@ def _check(planes: torch.Tensor, homs: torch.Tensor) -> tuple[int, int]:
   return views, num_planes
 
 
+def _launch(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
+  """The forward: the kernel for CUDA tensors, the plain version for CPU
+  tensors, a raise for anything else (see ``render_mpi_fused``)."""
+  views, num_planes = _check(planes, homs)
+  if planes.device.type == "cpu" and homs.device.type == "cpu":
+    return plain_render(planes, homs)
+  dev = _cuda_ready("render_mpi_fused", {"planes": planes, "homs": homs},
+                    "planes")
+  if num_planes > MAX_PLANES:
+    raise ValueError(f"{num_planes} planes exceed the kernel's "
+                     f"{MAX_PLANES}-plane shared-memory budget")
+  if views > MAX_VIEWS:
+    raise ValueError(f"{views} views exceed the kernel's {MAX_VIEWS}")
+  height, width = planes.shape[-3], planes.shape[-2]
+  out = torch.empty((views, height, width, 3), dtype=torch.float32,
+                    device=dev)
+  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
+  from mpi_vision_tpu_torch.kernels import _build
+
+  lib = _build.load(KERNEL, _SIGNATURES)
+  err = lib.mpi_render_fused(
+      planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
+      height, width, view_stride, dev.index,
+      torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
+  with _count_lock:
+    render_mpi_fused.launches += 1
+  return out
+
+
+class _FusedRender(torch.autograd.Function):
+  """The render with its gradient: the counterpart of the JAX package's
+  ``jax.custom_vjp`` around its fused kernels (``render_pallas.py``
+  ``_make_fused``/``_make_shared``).
+
+  The forward keeps only ``planes`` and ``homs``; the backward recomputes
+  the warp rather than storing a warped stack, as the JAX backward does.
+  ``d planes`` comes from ``render_fused_bwd.backward_planes`` (its two
+  CUDA kernels on the card, their plain versions on the CPU). ``d homs`` is
+  plain torch, the autograd of ``plain_render``, and is computed only when
+  asked for: training poses are data, so the training path never takes it.
+  """
+
+  @staticmethod
+  def forward(ctx, planes, homs):
+    ctx.save_for_backward(planes, homs)
+    return _launch(planes, homs)
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, g):
+    planes, homs = ctx.saved_tensors
+    g = g.contiguous()
+    dplanes = dhoms = None
+    if ctx.needs_input_grad[0]:
+      from mpi_vision_tpu_torch.kernels import render_fused_bwd
+
+      dplanes = render_fused_bwd.backward_planes(planes, homs, g)
+    if ctx.needs_input_grad[1]:
+      with torch.enable_grad():
+        h = homs.detach().requires_grad_(True)
+        (dhoms,) = torch.autograd.grad(plain_render(planes.detach(), h), h, g)
+    return dplanes, dhoms
+
+
 def render_mpi_fused(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
-  """Render views of an MPI in one CUDA kernel launch.
+  """Render views of an MPI in one CUDA kernel launch, differentiably.
 
   Args:
     planes: ``[P, H, W, 4]`` float32 RGBA planes, back-to-front, shared by
@@ -198,48 +304,18 @@ def render_mpi_fused(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
       contiguous.
 
   Returns:
-    ``[V, H, W, 3]`` float32.
+    ``[V, H, W, 3]`` float32, with a gradient to ``planes`` (and to
+    ``homs`` when it requires one) through ``_FusedRender``.
 
   CUDA tensors launch the kernel on the current stream (no synchronise)
   and count the launch in ``render_mpi_fused.launches``; CPU tensors run
   ``plain_render``. Anything else — mixed devices, other dtypes, shapes,
   non-contiguous or misaligned (not 16-byte) planes on the card, a missing
-  ``nvcc``, a failed build or launch — raises.
+  ``nvcc``, a failed build or launch — raises. The backward follows the
+  same rule (``kernels/render_fused_bwd.py``).
   """
-  views, num_planes = _check(planes, homs)
-  if planes.device.type == "cpu" and homs.device.type == "cpu":
-    return plain_render(planes, homs)
-  if planes.device.type != "cuda" or homs.device != planes.device:
-    raise ValueError(f"planes ({planes.device}) and homs ({homs.device}) "
-                     "must both be on one CUDA device, or both on the CPU")
-  if not (planes.is_contiguous() and homs.is_contiguous()):
-    raise ValueError("planes and homs must be contiguous for the kernel")
-  if planes.data_ptr() % 16:
-    raise ValueError("planes must start on a 16-byte boundary: the kernel "
-                     "reads one RGBA tap as one float4")
-  if num_planes > MAX_PLANES:
-    raise ValueError(f"{num_planes} planes exceed the kernel's "
-                     f"{MAX_PLANES}-plane shared-memory budget")
-  if views > MAX_VIEWS:
-    raise ValueError(f"{views} views exceed the kernel's {MAX_VIEWS}")
-  height, width = planes.shape[-3], planes.shape[-2]
-  out = torch.empty((views, height, width, 3), dtype=torch.float32,
-                    device=planes.device)
-  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
-  from mpi_vision_tpu_torch.kernels import _build
-
-  lib = _build.load(KERNEL, _SIGNATURES)
-  err = lib.mpi_render_fused(
-      planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
-      height, width, view_stride, planes.device.index,
-      torch.cuda.current_stream(planes.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
-  with _count_lock:
-    render_mpi_fused.launches += 1
-  return out
+  _check(planes, homs)
+  return _FusedRender.apply(planes, homs)
 
 
 render_mpi_fused.launches = 0
-
-

@@ -46,6 +46,19 @@ def _forbidden(name: str) -> bool:
   return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+def test_scan_covers_the_training_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.config",
+               "mpi_vision_tpu_torch.core.sweep",
+               "mpi_vision_tpu_torch.models.stereo_mag",
+               "mpi_vision_tpu_torch.train.vgg",
+               "mpi_vision_tpu_torch.train.loss",
+               "mpi_vision_tpu_torch.train.loop",
+               "mpi_vision_tpu_torch.data.realestate",
+               "mpi_vision_tpu_torch.kernels.render_fused_bwd"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
@@ -106,12 +119,43 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
       np.eye(4, dtype=np.float32))).all()
 
 
+def test_train_entry_refuses_to_run_on_the_cpu_unasked(monkeypatch, tmp_path):
+  from mpi_vision_tpu_torch import cli, config
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.train import loop
+
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  cfg = config.TrainConfig()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    cfg.make_train_state()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    cfg.make_vgg()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    loop.create_train_state()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    cfg.data.make_dataset()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    realestate.RealEstateDataset(str(tmp_path))
+  scene = realestate.Scene("v", [0, 1, 2], np.zeros((3, 4), np.float32),
+                           np.zeros((3, 4, 4), np.float32))
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    realestate.make_example(str(tmp_path), scene, [0, 1, 2])
+  args = ["train", "--synthetic", "--synthetic-scenes", "2", "--img-size",
+          "16", "--num-planes", "2", "--epochs", "1", "--no-vgg-loss",
+          "--dataset", str(tmp_path)]
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    cli.main(args)
+  assert not any(tmp_path.iterdir()), "failed after writing data"
+  state = cfg.make_train_state(device="cpu")
+  assert next(state.model.parameters()).device.type == "cpu"
+
+
 def test_kernel_build_is_lazy():
   """Importing the kernel modules builds nothing; the library path is
   keyed by the source and the flags."""
   from mpi_vision_tpu_torch.kernels import _build
 
-  assert "render_fused" in _build.sources()
+  assert {"render_fused", "render_fused_bwd"} <= set(_build.sources())
   path = _build.library_path("render_fused")
   assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
   assert "-fmad=false" in _build.NVCC_FLAGS
