@@ -54,12 +54,32 @@ Phases:
      bound; the train step and its split (the profiler's busy time of the
      U-Net, render forward, kernels A and B, VGG loss, optimizer) and the
      card's busy share over steps.
+  8. the compose kernel (``kernels/compose_over.py``) vs its plain version
+     at 1080p x 32 planes, V = 1 and V = 8, f32 and bf16, with alphas of
+     exactly 0 and 1 and a one-plane stack: f32 within 1e-4 (the design
+     gives 0), bf16 within one bf16 ulp; the gradient through its autograd
+     Function equal to the plain scan's; times by CUDA events (median of
+     20; the plain version 3 runs) beside the bound.
+  9. tiled serving (the slice's main path): ``RenderService(method=
+     "pallas", tile="auto", convention=EXACT)`` on a 1080 x 1920 x 32
+     depth-stratified scene (``synthetic_tiled_scene``) with a narrow-FOV
+     camera, behind ``make_http_server``; concurrent and sequential
+     ``POST /render`` and a profiled in-process burst, launch counts zeroed
+     just before and read just after. Every frame [1080, 1920, 3] and
+     finite; every frame, full coverage or culled, bit-identical to an
+     untiled ``method="pallas"`` service's (a crop renders through its
+     window of the scene with the full render's taps), one frame within
+     1e-4 of the fused kernel's render; ``/stats`` shows
+     culled tiles and a request with fewer than 32 planes; the compose
+     kernel launched, no plain version ran. Then renders/s, latency, the
+     warp vs composite split of a flight, crop assembly and the busy share.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -88,12 +108,14 @@ REPLACES = {
                              "mpi_vision_tpu/kernels/render_pallas_bwd.py:120"],
     "adjoint_warp": ["mpi_vision_tpu/kernels/render_pallas_bwd.py:263",
                      "mpi_vision_tpu/kernels/render_pallas_bwd.py:529"],
+    "over_composite": ["mpi_vision_tpu/kernels/compose_pallas.py:41"],
 }
 SOURCES = {
     "render_fused": "mpi_vision_tpu_torch/kernels/csrc/render_fused.cu",
     "rewarp_composite_vjp":
         "mpi_vision_tpu_torch/kernels/csrc/render_fused_bwd.cu",
     "adjoint_warp": "mpi_vision_tpu_torch/kernels/csrc/render_fused_bwd.cu",
+    "over_composite": "mpi_vision_tpu_torch/kernels/csrc/compose_over.cu",
 }
 # Phase 7: one epoch over this many synthetic scenes is this many steps.
 TRAIN_STEPS = 8
@@ -627,6 +649,282 @@ def backward_times(torch, dev, planes) -> dict:
   return out
 
 
+def compose_bound(views: int, itemsize: int) -> tuple[float, str]:
+  """Least time (ms) of the compose kernel over a ``views``-view stack:
+  every plane read once, the frame written once, against its f32
+  operations."""
+  from mpi_vision_tpu_torch.kernels import compose_over
+
+  pixels = views * HEIGHT * WIDTH
+  return least_ms(PLANES * pixels * 4 * itemsize + pixels * 3 * itemsize,
+                  PLANES * pixels * compose_over.FLOPS_PER_SAMPLE)
+
+
+def bf16_ulps(torch, got, want) -> int:
+  """Largest distance in bf16 steps between two non-negative bf16
+  tensors (their bit patterns order like their values)."""
+  return int((got.view(torch.int16).to(torch.int32)
+              - want.view(torch.int16).to(torch.int32)).abs().max())
+
+
+def phase8_compose(torch, dev) -> dict:
+  """The compose kernel vs its plain version (see the module docstring)."""
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+
+  gen = torch.Generator(device=dev).manual_seed(8)
+  out = {"max_abs_err": 0.0, "bf16_max_ulps": 0}
+  for views in (1, 8):
+    rgba = torch.rand((PLANES, views, HEIGHT, WIDTH, 4), generator=gen,
+                      device=dev)
+    rgba[3, :, :HEIGHT // 4, :, 3] = 0.0   # exact pass-through
+    rgba[7, :, HEIGHT // 2:, :, 3] = 1.0   # exact replace
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+      x = rgba.to(dtype)
+      got = co.over_composite_pallas(x)
+      want = co.plain_composite(x)
+      torch.cuda.synchronize()
+      check(got.shape == (views, HEIGHT, WIDTH, 3) and got.dtype == dtype,
+            f"compose {name} V={views}: {got.shape} {got.dtype}")
+      check(bool(torch.isfinite(got).all()), f"compose {name}: non-finite")
+      err = float((got.float() - want.float()).abs().max())
+      if dtype == torch.bfloat16:
+        ulps = bf16_ulps(torch, got, want)
+        out["bf16_max_ulps"] = max(out["bf16_max_ulps"], ulps)
+        check(ulps <= 1, f"compose bf16 V={views}: {ulps} ulps")
+      check(err <= TOL, f"compose {name} V={views}: max_abs_err {err}")
+      out["max_abs_err"] = max(out["max_abs_err"], err)
+      # Plane 7's alpha of 1 leaves the lower half to planes 7.. alone.
+      check(torch.equal(got[:, HEIGHT // 2:], co.plain_composite(
+          x[7:, :, HEIGHT // 2:].contiguous())),
+            f"compose {name}: alpha 1 did not replace what lies behind")
+      del want
+      ms = cuda_ms(torch, lambda: co.over_composite_pallas(x), 20, warm=3)
+      plain_ms = cuda_ms(torch, lambda: co.plain_composite(x), 3, warm=1)
+      b_ms, b_by = compose_bound(views, x.element_size())
+      out[f"{name}_v{views}"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "max_abs_err": err,
+                                 "ms_over_bound": ms / b_ms}
+      log(f"compose vs plain [{name}, V={views}]: max_abs_err {err:.3e}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} "
+          f"ms ({b_by})")
+      del got, x
+    if views == 1:
+      one = rgba[:1]
+      check(torch.equal(co.over_composite_pallas(one), one[0, ..., :3]),
+            "a one-plane stack is not its rgb")
+      g = torch.randn((1, HEIGHT, WIDTH, 3), generator=gen, device=dev)
+      leaf = rgba.clone().requires_grad_(True)
+      (co.over_composite_pallas(leaf) * g).sum().backward()
+      ref = rgba.clone().requires_grad_(True)
+      from mpi_vision_tpu_torch.core import compose
+
+      (compose.over_composite_scan(ref) * g).sum().backward()
+      check(torch.equal(leaf.grad, ref.grad),
+            "the autograd Function's gradient is not the plain scan's")
+      check(float(leaf.grad.abs().max()) > 0, "zero composite gradient")
+      log("compose: one plane == its rgb; the autograd gradient == the "
+          "plain scan's, nonzero")
+      del leaf, ref, g
+    del rgba
+    torch.cuda.empty_cache()
+  return out
+
+
+TILED_KINDS = (("compose_s", "compose_over"), ("gather_s", "gather"),
+               ("d2h_s", "DtoH"), ("h2d_s", "HtoD"))
+
+
+def tiled_scene():
+  """Phase 9's 1080 x 1920 x 32 scene and narrow-FOV camera (host numpy,
+  ~20 s: ``main`` makes it on a thread while phases 3-4 run)."""
+  from mpi_vision_tpu_torch.core.camera import intrinsics_matrix
+  from mpi_vision_tpu_torch.serve import synthetic_tiled_scene
+
+  # Four depth slabs left to right (planes 0-7, 8-15, 16-23, 24-31): every
+  # plane holds content somewhere, so full coverage keeps all 32.
+  layers, depths, _ = synthetic_tiled_scene("tiled_000", HEIGHT, WIDTH,
+                                            PLANES, regions=4, seed=0)
+  # Narrow FOV (fx = 2 W): a pan of a few tenths of a radian leaves tile
+  # columns, and their slabs, out of the frustum.
+  k = intrinsics_matrix(2.0 * WIDTH, 2.0 * WIDTH, WIDTH / 2.0,
+                        HEIGHT / 2.0).numpy()
+  return layers, depths, k
+
+
+def phase9_tiled(torch, dev, scene) -> dict:
+  """Tiled serving, the slice's main path (see the module docstring).
+  ``scene`` is ``tiled_scene()``'s."""
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.serve import RenderService, make_http_server
+
+  kw = dict(device="cuda", method="pallas", convention=Convention.EXACT,
+            max_batch=8, max_wait_ms=20.0, max_inflight=4)
+  tiled = RenderService(tile="auto", cache_bytes=8 << 30, **kw)
+  mono = RenderService(cache_bytes=4 << 30, **kw)
+  httpd = None
+  try:
+    t0 = time.perf_counter()
+    for svc in (tiled, mono):
+      svc.add_scene("tiled_000", *scene)
+    tiled.warmup()
+    meta = tiled.tile_meta("tiled_000")
+    log(f"tiled: scene {HEIGHT}x{WIDTH}x{PLANES} published, baked and "
+        f"warmed in {time.perf_counter() - t0:.2f}s; grid "
+        f"{meta.grid.rows}x{meta.grid.cols} of {meta.grid.tile} px")
+    httpd = make_http_server(tiled, port=0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def post(pose):
+      body = json.dumps({"scene_id": "tiled_000",
+                         "pose": pose.tolist()}).encode()
+      req = urllib.request.Request(
+          f"http://127.0.0.1:{port}/render", data=body,
+          headers={"Content-Type": "application/json",
+                   "Accept": "application/octet-stream"})
+      with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.status == 200, f"/render answered {resp.status}")
+        shape = tuple(int(x) for x in resp.headers["X-Image-Shape"].split(","))
+        return np.frombuffer(resp.read(), "<f4").reshape(shape)
+
+    truck = np.eye(4, dtype=np.float32)
+    truck[0, 3], truck[2, 3] = 0.01, -0.01
+    conc = [np.eye(4, dtype=np.float32), truck, pan_pose(-0.35 * 57.3, 0.0),
+            pan_pose(0.35 * 57.3, 0.0), pan_pose(-0.2 * 57.3, 0.0),
+            pan_pose(0.2 * 57.3, 0.0), pan_pose(-0.35 * 57.3, 0.0),
+            pan_pose(0.1 * 57.3, 0.0)]
+    seq = [pan_pose(-0.3 * 57.3, 0.0), np.eye(4, dtype=np.float32),
+           pan_pose(0.25 * 57.3, 0.0)]
+    frames: list = [None] * len(conc)
+    errors: list = []
+
+    def fire(i):
+      try:
+        frames[i] = post(conc[i])
+      except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+        errors.append(e)
+
+    burst = [pan_pose(0.04 * 57.3 * (i - 8), 0.0) for i in range(16)]
+
+    def run_burst():
+      futs = [tiled.render_async("tiled_000", p) for p in burst]
+      for f in futs:
+        f.result(300)
+
+    co.over_composite_pallas.launches = 0
+    co.plain_composite.calls = 0
+    render_fused.plain_render.calls = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(conc))]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(300)
+    http_s = time.perf_counter() - t0
+    check(not errors, f"concurrent tiled /render failed: {errors[:1]}")
+    check(all(f is not None for f in frames), "a tiled /render hung")
+    frames += [post(p) for p in seq]
+    t0 = time.perf_counter()
+    run_burst()
+    burst_rps = len(burst) / (time.perf_counter() - t0)
+    activity = device_activity(torch, run_burst, TILED_KINDS)
+    launches = co.over_composite_pallas.launches
+    plain = {"plain_composite": co.plain_composite.calls,
+             "plain_render": render_fused.plain_render.calls}
+    stats = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{port}/stats", timeout=60).read())
+    log(f"tiled: main path launched the compose kernel {launches} times; "
+        f"plain versions {json.dumps(plain)}; {len(conc)} concurrent HTTP "
+        f"renders in {http_s:.3f}s; burst {burst_rps:.2f} renders/s; "
+        f"profiled burst {json.dumps(activity)}")
+    log(f"tiled: /stats tiles {json.dumps(stats['tiles'])}; tile_cache "
+        f"{json.dumps(stats['tile_cache'])}; latency_ms "
+        f"{stats['latency_ms']}; batch sizes {stats['batch_size_hist']}")
+    check(launches > 0, "the tiled path never launched the compose kernel")
+    check(not any(plain.values()), f"a plain version ran: {plain}")
+    check(stats["engine"]["platform"] == "cuda"
+          and stats["engine"]["method"] == "pallas", "engine not pallas/cuda")
+    check(stats["tiles"]["culled_total"] > 0, "no tile was culled")
+    check(min(int(n) for n in stats["tiles"]["planes_hist"]) < PLANES,
+          "no request culled a plane")
+
+    # Every frame against the untiled service's render of its pose.
+    n_full, worst_culled = 0, 0.0
+    for pose, frame in zip(conc + seq, frames):
+      check(frame.shape == (HEIGHT, WIDTH, 3), f"frame shape {frame.shape}")
+      check(bool(np.isfinite(frame).all()), "non-finite tiled pixels")
+      want = mono.render("tiled_000", pose, timeout=300)
+      sig = meta.plan(pose[None], Convention.EXACT)
+      full = sig.crop == (0, HEIGHT, 0, WIDTH) and len(sig.planes) == PLANES
+      err = float(np.abs(frame - want).max())
+      if not full:
+        worst_culled = max(worst_culled, err)
+      n_full += full
+      check(np.array_equal(frame, want), f"a {'full' if full else 'culled'} "
+            f"tiled frame differs from the untiled one by {err}")
+    check(n_full > 0 and n_full < len(frames), "no full or no culled frame")
+    scene = mono.cache.get("tiled_000")
+    fused = render.render_views(
+        scene.rgba_layers, torch.from_numpy(conc[2][None]).to(dev),
+        scene.depths, scene.intrinsics, convention=Convention.EXACT,
+        method="fused_pallas")[0].cpu().numpy()
+    fused_err = float(np.abs(frames[2] - fused).max())
+    log(f"tiled: {n_full} full-coverage and {len(frames) - n_full} culled "
+        f"frames bit-identical to the untiled service (culled max_abs_err "
+        f"{worst_culled:.3e}); a culled frame vs the fused kernel "
+        f"{fused_err:.3e}")
+    check(fused_err <= TOL, f"tiled frame vs fused kernel {fused_err}")
+
+    # One flight's split: warp (plain torch) vs composite (the kernel) at
+    # V = 8, full coverage and the widest pan's crop; crop assembly on a
+    # memo miss (host clock, ends in a synchronise).
+    split = {}
+    for label, pose in (("full", np.eye(4, dtype=np.float32)),
+                        ("pan_0.35rad", conc[2])):
+      key, _ = tiled._tile_batch_key("tiled_000", pose)
+      with tiled._crop_lock:
+        tiled._crop_memo.clear()
+        tiled._crop_memo_bytes = 0
+      t0 = time.perf_counter()
+      crop = tiled._get_scene(key)
+      assemble_ms = (time.perf_counter() - t0) * 1e3
+      poses8 = torch.from_numpy(np.repeat(pose[None], 8, 0)).to(dev)
+      planes = crop.rgba_layers.unsqueeze(0).expand(
+          (8,) + tuple(crop.rgba_layers.shape)).movedim(3, 0)
+      homs = render.plane_homographies(
+          poses8, crop.depths, crop.intrinsics.expand(8, 3, 3))
+      stack = render.warp_stack(planes, homs, HEIGHT, WIDTH,
+                                Convention.EXACT, crop.src_window)
+      warp_ms = cuda_ms(torch, lambda: render.warp_stack(
+          planes, homs, HEIGHT, WIDTH, Convention.EXACT, crop.src_window),
+          1, warm=0)
+      comp_ms = cuda_ms(torch, lambda: co.over_composite_pallas(stack), 10)
+      split[label] = {"planes": int(crop.planes.shape[0]),
+                      "crop_hw": list(crop.planes.shape[1:3]),
+                      "warp_ms_v8": warp_ms, "composite_ms_v8": comp_ms,
+                      "assemble_ms": assemble_ms}
+      del stack, planes, homs, crop
+      torch.cuda.empty_cache()
+    log(f"tiled: flight split {json.dumps(split)}")
+  finally:
+    if httpd is not None:
+      httpd.shutdown()
+      httpd.server_close()
+    tiled.close()
+    mono.close()
+  return {"launches": launches, "renders_per_s": burst_rps,
+          "http_concurrent_s": http_s, "latency_ms": stats["latency_ms"],
+          "tiles": stats["tiles"], "burst_device": activity,
+          "flight_split": split, "culled_max_abs_err": worst_culled,
+          "fused_max_abs_err": fused_err, "full_frames": n_full,
+          "frames": len(frames)}
+
+
 def main() -> int:
   import torch
 
@@ -664,6 +962,10 @@ def main() -> int:
     for line in text.splitlines():
       if "registers" in line or "spill" in line:
         log(f"ptxas[{name}]: {line.strip()}")
+
+  # Phase 9's scene is host numpy; make it while the card works.
+  scene_pool = concurrent.futures.ThreadPoolExecutor(1)
+  tiled_future = scene_pool.submit(tiled_scene)
 
   # -- 3. kernel vs plain version ----------------------------------------
   gen = torch.Generator(device=dev).manual_seed(0)
@@ -915,6 +1217,18 @@ def main() -> int:
       "seconds_total": time.perf_counter() - t_start,
   }}))
 
+  # -- 8. the compose kernel vs its plain version ---------------------------
+  del planes
+  torch.cuda.empty_cache()
+  comp = phase8_compose(torch, dev)
+
+  # -- 9. tiled serving: the slice's main path -------------------------------
+  tiled = phase9_tiled(torch, dev, tiled_future.result())
+  scene_pool.shutdown()
+  log(json.dumps({"times_tiled": {
+      "card": card, "compose_1080p_x32": comp, "tiled_serving": tiled,
+      "seconds_total": time.perf_counter() - t_start}}))
+
   # -- result lines --------------------------------------------------------
   v1 = bwd_times["v1"]
   rows = [{"name": "render_fused", "launches": launches,
@@ -929,6 +1243,13 @@ def main() -> int:
                  "bound_ms": v1[f"bound_{key}_ms"],
                  "bound_by": v1[f"bound_{key}_by"],
                  "library_ms": v1["library_ms"] if key == "b" else None})
+  c8 = comp["f32_v8"]
+  rows.append({"name": "over_composite", "launches": tiled["launches"],
+               "max_abs_err": comp["max_abs_err"],
+               "bf16_max_ulps": comp["bf16_max_ulps"], "views": 8,
+               "ms": c8["ms"], "plain_ms": c8["plain_ms"],
+               "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
+               "library_ms": None})
   print(json.dumps({"kernels": [
       {"name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
        "replaces": REPLACES[row["name"]][0],

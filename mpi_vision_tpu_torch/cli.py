@@ -8,7 +8,9 @@
   * ``serve`` — run the batched render-serving subsystem (serve/): scene
     cache + micro-batching scheduler + HTTP front end (``/render``,
     ``/healthz``, ``/stats``, ``/debug/traces``) over synthetic scenes, on
-    the card (``--device cuda``, the default) or, when asked, the CPU.
+    the card (``--device cuda``, the default) or, when asked, the CPU;
+    ``--tiled`` serves tile-granular scenes (serve/tiles.py) through the
+    warp and the CUDA compose kernel (``--method pallas``).
 
 Prints a one-line JSON summary on stdout (diagnostics on stderr).
 """
@@ -33,6 +35,15 @@ def _write_port_file(path: str, port: int) -> None:
   with open(tmp_path, "w") as fh:
     fh.write(str(port))
   os.replace(tmp_path, path)
+
+
+class _MethodAction(argparse.Action):
+  """Stores ``--method`` and notes that it was given: ``--tiled`` without
+  it renders with 'pallas', the method that takes tile crops."""
+
+  def __call__(self, parser, namespace, values, option_string=None):
+    setattr(namespace, self.dest, values)
+    namespace.method_given = True
 
 
 def cmd_train(args: argparse.Namespace) -> dict:
@@ -142,18 +153,41 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       raise SystemExit(
           f"--max-inflight must be an integer or 'auto', "
           f"got {args.max_inflight!r}") from None
+  if not args.tiled and args.tile_size is not None:
+    # The tile size only acts through the tiled registry; silently serving
+    # monolithic scenes would drop the frustum culling asked for.
+    raise SystemExit("--tile-size require(s) --tiled")
+  tile_size: int | str | None = None
+  if args.tile_size is not None:
+    if args.tile_size == "auto":
+      tile_size = "auto"
+    else:
+      try:
+        tile_size = int(args.tile_size)
+      except ValueError:
+        raise SystemExit(
+            f"--tile-size must be an integer or 'auto', "
+            f"got {args.tile_size!r}") from None
+      if tile_size < 8:
+        raise SystemExit(f"--tile-size must be >= 8, got {tile_size}")
   convention = Convention.EXACT if args.convention == "exact" else None
-  svc = RenderService(
-      cache_bytes=args.cache_mb << 20, max_batch=args.max_batch,
-      max_wait_ms=args.max_wait_ms, max_inflight=max_inflight,
-      method=args.method, convention=convention, device=args.device,
-      max_queue=args.max_queue)
+  try:
+    svc = RenderService(
+        cache_bytes=args.cache_mb << 20, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_inflight=max_inflight,
+        method=(args.method if args.method_given or not args.tiled
+                else "pallas"),
+        tile=((tile_size if tile_size is not None else 64)
+              if args.tiled else None),
+        convention=convention, device=args.device, max_queue=args.max_queue)
+  except ValueError as e:  # a method that cannot render tile crops
+    raise SystemExit(str(e)) from None
   ids = svc.add_synthetic_scenes(
       args.scenes, height=args.img_size, width=args.img_size,
       planes=args.num_planes)
   _log(f"serve: {len(ids)} synthetic scenes "
        f"[{args.img_size}x{args.img_size}x{args.num_planes}] on "
-       f"{svc.engine.device}")
+       f"{svc.engine.device}, method {svc.engine.method}, tile {svc.tile}")
   if args.warmup:
     # Build the kernel and allocate the pinned buffers before traffic.
     svc.warmup()
@@ -211,6 +245,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       "platform": stats["engine"]["platform"],
       "device": stats["engine"]["device"],
       "method": stats["engine"]["method"],
+      "tile": svc.tile,
+      "tiles": stats["tiles"],
       "health": health["status"],
       "errors": stats["errors"],
       "rejected": stats["rejected"],
@@ -282,10 +318,25 @@ def build_parser() -> argparse.ArgumentParser:
   s.add_argument("--max-queue", type=int, default=1024,
                  help="pending-request cap; beyond it /render sheds "
                       "load with 503")
-  s.add_argument("--method", default="fused_pallas",
-                 choices=("fused_pallas", "fused", "scan", "assoc"),
-                 help="per-view render method (core/render.py); "
-                      "fused_pallas is the CUDA kernel")
+  s.add_argument("--method", default="fused_pallas", action=_MethodAction,
+                 choices=("fused_pallas", "pallas", "fused", "scan",
+                          "assoc"),
+                 help="per-view render method (core/render.py): "
+                      "fused_pallas is the fused CUDA kernel (the default "
+                      "untiled), pallas the warp then the CUDA compose "
+                      "kernel (the default with --tiled: the fused kernel "
+                      "cannot render tile crops)")
+  s.add_argument("--tiled", action=argparse.BooleanOptionalAction,
+                 default=False,
+                 help="tile-granular scenes (serve/tiles.py): split every "
+                      "scene into a fixed tile grid, render only the "
+                      "frustum-touched crop with content-free planes "
+                      "culled (bit-exact to the monolithic render), and "
+                      "cache baked data per tile")
+  s.add_argument("--tile-size", default=None,
+                 help="tile edge in pixels (default 64), or 'auto' to "
+                      "derive a per-scene edge targeting ~64 tiles "
+                      "(serve/tiles.py auto_tile); requires --tiled")
   s.add_argument("--convention", default="ref", choices=("ref", "exact"),
                  help="sampling convention: 'ref' reproduces the "
                       "reference exactly (its axis swap is benign on "
@@ -298,7 +349,7 @@ def build_parser() -> argparse.ArgumentParser:
                  default=True,
                  help="build the kernel and render each batch bucket once "
                       "before serving traffic")
-  s.set_defaults(fn=cmd_serve)
+  s.set_defaults(fn=cmd_serve, method_given=False)
   return ap
 
 

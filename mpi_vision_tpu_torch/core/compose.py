@@ -11,8 +11,10 @@ PyTorch counterpart of ``mpi_vision_tpu/core/compose.py``. Planes run back
   * ``method='assoc'`` — each plane is the affine map out -> rgb*a + (1-a)*out;
     affine maps compose associatively, so the planes reduce pairwise in
     log depth.
-  * ``method='pallas'`` — the JAX package's planar compose kernel. It has no
-    CUDA counterpart yet and raises ``NotImplementedError``.
+  * ``method='pallas'`` — the hand-written CUDA compose kernel
+    (``kernels/compose_over.py``, the counterpart of the JAX package's
+    Pallas ``kernels/compose_pallas.py``): CUDA tensors launch it, CPU
+    tensors run its plain version, this module's scan.
 """
 
 from __future__ import annotations
@@ -76,16 +78,15 @@ def over_composite_assoc(rgba: torch.Tensor) -> torch.Tensor:
 def over_composite(rgba: torch.Tensor, method: str = "scan") -> torch.Tensor:
   """Composite ``[P, ..., 4]`` back-to-front RGBA planes to ``[..., 3]`` RGB.
 
-  ``method``: 'scan' (default) or 'assoc'. 'pallas' names the JAX package's
-  compose kernel (``kernels/compose_pallas.py``), which the port has not
-  yet carried to CUDA.
+  ``method``: 'scan' (default), 'assoc', or 'pallas' (the CUDA kernel of
+  ``kernels/compose_over.py``; float32 or bfloat16, ``[P, ..., 4]``).
   """
   if method == "scan":
     return over_composite_scan(rgba)
   if method == "assoc":
     return over_composite_assoc(rgba)
   if method == "pallas":
-    raise NotImplementedError(
-        "the over-composite kernel (kernels/compose_pallas.py in the JAX "
-        "package) is not yet ported to CUDA; use method='scan' or 'assoc'")
+    from mpi_vision_tpu_torch.kernels import compose_over
+
+    return compose_over.over_composite_pallas(rgba)
   raise ValueError(f"unknown composite method: {method!r}")

@@ -8,9 +8,11 @@ stages:
   2. the target grid mapped through every homography (``warp_coordinates``);
   3. either a loop that warps a plane and composites it at once (never
      holding the [P, B, H, W, 4] warped stack — 'fused'), a batched warp +
-     composite ('scan'/'assoc', see core/compose.py), or the hand-written
-     CUDA kernel that does all three per output pixel ('fused_pallas', the
-     JAX name of the fused kernel path; kernels/render_fused.py).
+     composite ('scan'/'assoc', see core/compose.py), a warp into the
+     stack plane by plane and the hand-written CUDA compose kernel over it
+     ('pallas', kernels/compose_over.py), or the hand-written CUDA kernel
+     that does all three per output pixel ('fused_pallas', the JAX name of
+     the fused kernel path; kernels/render_fused.py).
 
 Layouts: MPIs enter as ``[B, H, W, P, 4]`` (the reference layout) or
 planes-leading ``[P, B, H, W, 4]``.
@@ -23,7 +25,7 @@ import torch
 from mpi_vision_tpu_torch.core import compose, geometry, sampling
 from mpi_vision_tpu_torch.core.sampling import Convention
 
-METHODS = ("fused_pallas", "fused", "scan", "assoc")
+METHODS = ("fused_pallas", "pallas", "fused", "scan", "assoc")
 
 
 def plane_homographies(
@@ -95,6 +97,38 @@ def warp_planes(
   return sampling.bilinear_sample(planes, coords)
 
 
+def warp_stack(
+    planes: torch.Tensor,
+    homs: torch.Tensor,
+    height: int,
+    width: int,
+    convention: Convention = Convention.REF_HOMOGRAPHY,
+    src_window: tuple | None = None,
+) -> torch.Tensor:
+  """Every plane warped into the target grid: ``[P, B, H_t, W_t, C]``.
+
+  ``planes [P, B, H_s, W_s, C]`` (the batch may be an ``expand`` of one
+  scene), ``homs [P, B, 3, 3]``. The same values, bit for bit, as one
+  batched ``bilinear_sample`` over ``warp_coordinates(homs, ...)`` — each
+  element is the same elementwise chain — but the stack is filled one
+  plane at a time, so the sampler's temporaries (int64 indices expanded
+  over the channels, four gathered taps, the blends: roughly 150-200 bytes
+  per target sample) exist for one plane, not for all P. At 1080p x 32
+  planes that is the difference between ~1 GB and ~10 GB per view.
+  ``src_window`` is ``render_mpi``'s.
+  """
+  num_planes, batch, h_s, w_s, chans = planes.shape
+  if src_window is not None:
+    h_s, w_s = src_window[2:]
+  out = torch.empty((num_planes, batch, height, width, chans),
+                    dtype=planes.dtype, device=planes.device)
+  for p in range(num_planes):
+    coords = warp_coordinates(homs[p], height, width, convention,
+                              src_height=h_s, src_width=w_s)
+    out[p] = sampling.bilinear_sample(planes[p], coords, window=src_window)
+  return out
+
+
 def render_views(
     rgba_layers: torch.Tensor,
     tgt_poses: torch.Tensor,
@@ -104,6 +138,7 @@ def render_views(
     method: str = "fused",
     tgt_intrinsics: torch.Tensor | None = None,
     out_hw: tuple[int, int] | None = None,
+    src_window: tuple | None = None,
 ) -> torch.Tensor:
   """Render a batch of V target views of ONE scene.
 
@@ -121,7 +156,8 @@ def render_views(
   k_t = (None if tgt_intrinsics is None else
          tgt_intrinsics.unsqueeze(0).expand(v, 3, 3))
   return render_mpi(planes, tgt_poses, depths, k, convention=convention,
-                    method=method, tgt_intrinsics=k_t, out_hw=out_hw)
+                    method=method, tgt_intrinsics=k_t, out_hw=out_hw,
+                    src_window=src_window)
 
 
 def render_mpi(
@@ -134,6 +170,7 @@ def render_mpi(
     planes_leading: bool = False,
     tgt_intrinsics: torch.Tensor | None = None,
     out_hw: tuple[int, int] | None = None,
+    src_window: tuple | None = None,
 ) -> torch.Tensor:
   """Render a novel view from an MPI. The reference's ``mpi_render_view_torch``.
 
@@ -149,14 +186,26 @@ def render_mpi(
       ``kernels/render_fused.py`` (its plain version for CPU tensors) —
       every pose, no envelope; 'fused' loops warp+composite per plane with
       no [P, ...] warped stack; 'scan'/'assoc' warp all planes then
-      composite (see core/compose.py).
-    tgt_intrinsics: optional ``[B, 3, 3]`` target intrinsics (plain methods
-      only, as in the JAX package).
+      composite (see core/compose.py); 'pallas' warps into the stack one
+      plane at a time, then composites it in the CUDA compose kernel
+      (``kernels/compose_over.py``; its plain version for CPU tensors).
+    tgt_intrinsics: optional ``[B, 3, 3]`` target intrinsics (every method
+      but 'fused_pallas', as in the JAX package).
     out_hw: optional ``(H_t, W_t)`` rendered-frame dims when they differ
-      from the MPI's (plain methods only).
+      from the MPI's (every method but 'fused_pallas').
+    src_window: optional ``(y0, x0, H_full, W_full)``: the MPI is the window
+      ``[y0:y0 + H, x0:x0 + W]`` of an ``H_full x W_full`` scene (a tile
+      crop, serve/tiles.py), and ``intrinsics`` are the full scene's. Taps
+      are computed in the full scene's pixel space and read from the window
+      (zeros outside it): wherever every tap that lands on content falls
+      inside the window, the frame is bit-identical to the full scene's.
+      The frame defaults to ``H_full x W_full``. Every method but
+      'fused_pallas'. (The JAX package folds the crop into corrected source
+      intrinsics instead, which rounds a tap by up to ~1e-4 px at 1080p.)
 
   Returns:
-    ``[B, H_t, W_t, 3]`` rendered view (``H_t, W_t`` default to the MPI's).
+    ``[B, H_t, W_t, 3]`` rendered view (``H_t, W_t`` default to the MPI's,
+    or the full scene's with ``src_window``).
   """
   if method not in METHODS:
     raise ValueError(f"unknown render method {method!r}; one of {METHODS}")
@@ -164,10 +213,12 @@ def render_mpi(
   _, _, h, w, _ = planes.shape
 
   if method == "fused_pallas":
-    if tgt_intrinsics is not None or out_hw is not None:
+    if (tgt_intrinsics is not None or out_hw is not None
+        or src_window is not None):
       raise ValueError(
-          "method='fused_pallas' does not support tgt_intrinsics/out_hw "
-          "(cropped sources); use a plain method ('fused'/'scan').")
+          "method='fused_pallas' does not support tgt_intrinsics/out_hw/"
+          "src_window (cropped sources); use 'pallas' or a plain method "
+          "('fused'/'scan').")
     from mpi_vision_tpu_torch.kernels import render_fused
     homs = render_fused.pixel_homographies(
         tgt_pose, depths, intrinsics, h, w, convention)   # [P, B, 3, 3]
@@ -180,20 +231,28 @@ def render_mpi(
     return render_fused.render_mpi_fused(
         batched.contiguous(), homs.transpose(0, 1).contiguous())
 
+  if src_window is not None:
+    src_window = tuple(int(v) for v in src_window)
+    h, w = src_window[2:]
   th, tw = (h, w) if out_hw is None else (int(out_hw[0]), int(out_hw[1]))
   homs = plane_homographies(tgt_pose, depths, intrinsics,
                             tgt_intrinsics=tgt_intrinsics)  # [P, B, 3, 3]
 
+  if method == "pallas":
+    return compose.over_composite(
+        warp_stack(planes, homs, th, tw, convention, src_window),
+        method="pallas")
+
   if method != "fused":
     coords = warp_coordinates(homs, th, tw, convention,
                               src_height=h, src_width=w)
-    warped = sampling.bilinear_sample(planes, coords)
+    warped = sampling.bilinear_sample(planes, coords, window=src_window)
     return compose.over_composite(warped, method=method)
 
   def warp_one(plane, hom):
     coords = warp_coordinates(hom, th, tw, convention,
                               src_height=h, src_width=w)
-    return sampling.bilinear_sample(plane, coords)
+    return sampling.bilinear_sample(plane, coords, window=src_window)
 
   # Farthest plane: alpha ignored.
   out = warp_one(planes[0], homs[0])[..., :3]

@@ -58,7 +58,8 @@ def normalize_pixel_coords(
   return (coords_xy if offset is None else coords_xy + offset) / scale
 
 
-def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def bilinear_sample(image: torch.Tensor, coords: torch.Tensor,
+                    window: tuple | None = None) -> torch.Tensor:
   """Bilinearly sample ``image`` at normalized (0, 1) coords, zeros outside.
 
   Reproduces ``grid_sample(align_corners=False, padding_mode='zeros')``
@@ -70,6 +71,13 @@ def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     image: ``[..., H_s, W_s, C]``.
     coords: ``[..., H_t, W_t, 2]`` with (x, y) in (0, 1) space; leading dims
       broadcast against the image's.
+    window: optional ``(y0, x0, full_h, full_w)``: ``image`` is the window
+      ``[y0:y0 + H_s, x0:x0 + W_s]`` of a ``full_h x full_w`` image and
+      ``coords`` are normalized in the full image. Each tap is computed in
+      the full image's pixel space and moved by the integer origin, an
+      exact float subtraction, so a tap inside the window reads the pixel,
+      with the weights, of the full image's sample; taps outside it read
+      zeros.
 
   Returns:
     ``[..., H_t, W_t, C]`` sampled image. A broadcast image (an ``expand``
@@ -77,12 +85,16 @@ def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     copied per view.
   """
   h_s, w_s, chans = image.shape[-3], image.shape[-2], image.shape[-1]
+  full_h, full_w = (h_s, w_s) if window is None else window[2:]
   lead = torch.broadcast_shapes(image.shape[:-3], coords.shape[:-3])
   image = image.expand(lead + image.shape[-3:])
   coords = coords.to(torch.float32).expand(lead + coords.shape[-3:])
   # (0,1) space -> pixel index: c * size - 0.5 (align_corners=False).
-  px = coords[..., 0] * w_s - 0.5
-  py = coords[..., 1] * h_s - 0.5
+  px = coords[..., 0] * full_w - 0.5
+  py = coords[..., 1] * full_h - 0.5
+  if window is not None:
+    px = px - window[1]
+    py = py - window[0]
 
   x0f = torch.floor(px)
   y0f = torch.floor(py)

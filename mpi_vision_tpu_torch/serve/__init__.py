@@ -6,7 +6,9 @@ dispatch (``scheduler`` -> ``engine``, one CUDA stream), export latency,
 throughput, batch and cache metrics (``metrics``), keep the service up
 through device trouble (``resilience``: retry, circuit breaker,
 watchdog), and front it all with an in-process API plus a stdlib HTTP
-server (``server``). ``python -m mpi_vision_tpu_torch serve`` runs it.
+server (``server``). Tile-granular services (``tiles``) render only the
+frustum-touched crop of a scene. ``python -m mpi_vision_tpu_torch serve``
+runs it.
 """
 
 from mpi_vision_tpu_torch.obs import Tracer
@@ -27,4 +29,5 @@ from mpi_vision_tpu_torch.serve.server import (
     RenderService,
     make_http_server,
     synthetic_scene,
+    synthetic_tiled_scene,
 )

@@ -27,6 +27,12 @@ class BakedScene:
   ``planes`` is the scene in the kernel's layout, ``[P, H, W, 4]`` float32
   contiguous (one bilinear tap is one 16-byte load); ``rgba_layers`` is the
   JAX package's ``[H, W, P, 4]`` view of the same memory, not a copy.
+
+  ``src_window`` marks a tile crop (serve/tiles.py): ``(y0, x0, H, W)``,
+  the planes are that window of the ``H x W`` scene, whose camera
+  ``intrinsics`` still is, and the frame renders at ``H x W``
+  (``core.render.render_mpi``'s ``src_window``). ``None`` (every
+  whole-scene bake) keeps the engine's historical call.
   """
 
   scene_id: str
@@ -34,6 +40,7 @@ class BakedScene:
   depths: torch.Tensor      # [P], descending (see camera.inv_depths)
   intrinsics: torch.Tensor  # [3, 3]
   nbytes: int
+  src_window: tuple | None = None
 
   @property
   def rgba_layers(self) -> torch.Tensor:
@@ -138,6 +145,16 @@ class SceneCache:
       self._bytes -= scene.nbytes
       self.invalidations += 1
       return True
+
+  def invalidate_prefix(self, prefix: str) -> int:
+    """Drop every entry whose key starts with ``prefix`` (a tiled
+    scene's whole tile set). Returns the number of entries dropped."""
+    with self._lock:
+      keys = [k for k in self._scenes if k.startswith(prefix)]
+      for key in keys:
+        self._bytes -= self._scenes.pop(key).nbytes
+      self.invalidations += len(keys)
+      return len(keys)
 
   def _evict_locked(self) -> None:
     while self._bytes > self.byte_budget and len(self._scenes) > 1:

@@ -5,7 +5,11 @@ One baked scene + a ``[V, 4, 4]`` pose batch in, ``[V, H, W, 3]`` host
 images out, through ``core.render.render_views`` — by default
 ``method="fused_pallas"``, the CUDA kernel of ``kernels/render_fused.py``,
 which renders any pose with no plan (the JAX engine cannot run its Pallas
-kernels under its jit and serves through XLA instead).
+kernels under its jit and serves through XLA instead). Tile-granular
+services (serve/tiles.py) render cropped sources with ``method="pallas"``:
+the warp, then the CUDA compose kernel of ``kernels/compose_over.py``. A
+baked crop carries its window of the scene (``BakedScene.src_window``),
+which the engine forwards.
 
 The dispatch API is a streaming pipeline:
 
@@ -116,8 +120,9 @@ class RenderEngine:
 
   Args:
     method: ``core.render.render_mpi`` method — 'fused_pallas' (the CUDA
-      kernel; its plain version on the CPU) by default, or the plain
-      'fused'/'scan'/'assoc'.
+      kernel; its plain version on the CPU) by default, 'pallas' (the
+      warp, then the CUDA compose kernel; the method that renders tile
+      crops), or the plain 'fused'/'scan'/'assoc'.
     convention: coordinate convention forwarded to the renderer.
     device: "cuda" (default) or "cpu"; with no CUDA device the engine
       raises unless the caller passes "cpu".
@@ -185,9 +190,12 @@ class RenderEngine:
   # -- streaming API ------------------------------------------------------
 
   def _render(self, scene: BakedScene, poses: torch.Tensor) -> torch.Tensor:
+    # A tile crop (serve/tiles.py) renders the full frame from its window
+    # of the scene; a whole-scene bake keeps the historical call.
+    kw = {} if scene.src_window is None else {"src_window": scene.src_window}
     return render.render_views(scene.rgba_layers, poses, scene.depths,
                                scene.intrinsics, convention=self.convention,
-                               method=self.method)
+                               method=self.method, **kw)
 
   def submit(self, scene: BakedScene, poses) -> InFlightBatch:
     """Dispatch ``poses [V, 4, 4]`` against ``scene`` without waiting.

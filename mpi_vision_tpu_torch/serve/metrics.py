@@ -78,6 +78,17 @@ class ServeMetrics:
       self.dispatch_gap_max_s = 0.0
       self.out_of_order_completions = 0
       self.abandoned_batches = 0
+      # Tile-granular accounting (serve/tiles.py): how many source tiles
+      # each frustum touched / the crop rendered / the cull skipped.
+      # tiled_requests counts requests that went through a tile plan at
+      # all, so the ratios stay meaningful on mixed fleets.
+      self.tiled_requests = 0
+      self.tiles_touched = 0
+      self.tiles_rendered = 0
+      self.tiles_culled = 0
+      # Planes each tiled request composites after the content cull
+      # (plane count -> requests): how much depth the cull removed.
+      self._planes_hist: dict[int, int] = {}
       # Per-scene latency breakdown (hot-scene regression hunting):
       # scene -> [count, sum_s, max_s, deque(recent latencies)].
       self._per_scene: dict = {}
@@ -202,6 +213,21 @@ class ServeMetrics:
           self.phase_seconds[key] += phase_s
           self._hist_phase[key].record(phase_s)
 
+  def record_tiles(self, touched: int, rendered: int, total: int,
+                   planes: int | None = None) -> None:
+    """One request's frustum-cull outcome against a tiled scene:
+    ``touched`` tiles the frustum can sample, ``rendered`` tiles inside
+    the dispatched crop, ``total - rendered`` culled outright, and the
+    ``planes`` its crop composites."""
+    with self._lock:
+      self.tiled_requests += 1
+      self.tiles_touched += int(touched)
+      self.tiles_rendered += int(rendered)
+      self.tiles_culled += max(int(total) - int(rendered), 0)
+      if planes is not None:
+        self._planes_hist[int(planes)] = \
+            self._planes_hist.get(int(planes), 0) + 1
+
   def set_queue_depth(self, depth: int) -> None:
     with self._lock:
       self._queue_depth = int(depth)
@@ -250,6 +276,17 @@ class ServeMetrics:
                       if self.dispatch_gaps else None),
                   "max_ms": round(self.dispatch_gap_max_s * 1e3, 3),
               },
+          },
+          "tiles": {
+              "tiled_requests": self.tiled_requests,
+              "touched_total": self.tiles_touched,
+              "rendered_total": self.tiles_rendered,
+              "culled_total": self.tiles_culled,
+              "mean_touched": (round(
+                  self.tiles_touched / self.tiled_requests, 3)
+                  if self.tiled_requests else None),
+              "planes_hist": {str(k): v for k, v in
+                              sorted(self._planes_hist.items())},
           },
           # Native-histogram snapshots (JSON-ready, obs/hist.py):
           # percentile-true and mergeable across services.

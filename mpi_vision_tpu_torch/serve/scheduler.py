@@ -88,6 +88,9 @@ class _Pending:
   deadline: float | None = None  # absolute monotonic; None = no deadline
   trace: object = NULL_TRACE     # obs.trace.Trace (or the no-op singleton)
   qspan: int = 0                 # open queue_wait span handle
+  key: str = ""                  # batch/scene-provider key (tile signature
+                                 # appended for tiled scenes); defaults to
+                                 # scene_id in submit()
 
 
 @dataclasses.dataclass
@@ -141,6 +144,14 @@ class MicroBatcher:
     resilient: optional ``resilience.ResilientExecutor``; when set, every
       flight runs through its retry/breaker/watchdog machinery and an
       open breaker fast-fails submissions (``CircuitOpenError``).
+    batch_keyer: optional ``(scene_id, pose) -> (key, attrs | None)`` hook
+      of tile-granular services (serve/tiles.py). The key replaces the
+      scene id for batch coalescing AND the scene-provider call, so
+      requests batch only with frusta sharing their exact render plan —
+      which keeps a request's pixels a pure function of its own pose,
+      never of its batchmates'. ``attrs`` (tiles touched/culled) land on
+      the request's trace as a zero-length ``tile_cull`` span and in
+      ``metrics.record_tiles``.
     clock: injectable monotonic clock (deadlines, latencies, span edges
       all read it — share one instance with the tracer and the resilient
       executor so every timestamp is on one base).
@@ -154,7 +165,7 @@ class MicroBatcher:
                max_inflight_cap: int | None = None,
                adapt_every: int = 32, adapt_improve: float = 0.05,
                resilient: ResilientExecutor | None = None,
-               clock=time.monotonic):
+               batch_keyer=None, clock=time.monotonic):
     if max_batch < 1:
       raise ValueError(f"max_batch must be >= 1, got {max_batch}")
     if max_queue < 1:
@@ -189,6 +200,7 @@ class MicroBatcher:
     self._adapt_settled = not self.adaptive_inflight
     self._adapt_epochs = 0
     self.resilient = resilient
+    self._batch_keyer = batch_keyer
     self._clock = clock
     self._queue: deque[_Pending] = deque()
     self._cond = threading.Condition()
@@ -287,11 +299,19 @@ class MicroBatcher:
       # request would only make the caller wait to learn what is already
       # known.
       self.resilient.check_fastfail()
+    key, attrs = str(scene_id), None
+    if self._batch_keyer is not None:
+      # Frustum culling happens HERE, at the door: the key decides which
+      # batch the request may ride (KeyError for unknown scenes
+      # propagates to the caller — the same 404 the provider would
+      # raise, just before any queue time is spent).
+      key, attrs = self._batch_keyer(str(scene_id), pose)
     now = self._clock()
     fut: Future = Future()
     req = _Pending(str(scene_id), pose, fut, now,
                    deadline=None if timeout is None else now + timeout,
-                   trace=trace, qspan=trace.start_span("queue_wait"))
+                   trace=trace, qspan=trace.start_span("queue_wait"),
+                   key=key)
     with self._cond:
       if self._stop or self._thread is None:
         raise RuntimeError("scheduler is not running")
@@ -302,6 +322,14 @@ class MicroBatcher:
       self._queue.append(req)
       self.metrics.set_queue_depth(len(self._queue))
       self._cond.notify_all()
+    if attrs:
+      # Enqueued for real: only now does the plan land on the trace and
+      # in the tile counters — rejected requests never skew the ratios.
+      tspan = trace.start_span("tile_cull", **attrs)
+      trace.end_span(tspan)
+      self.metrics.record_tiles(attrs["tiles_touched"],
+                                attrs["tiles_rendered"],
+                                attrs["tiles_total"], attrs.get("planes"))
     return fut
 
   def render(self, scene_id: str, pose, timeout: float = 60.0,
@@ -336,8 +364,8 @@ class MicroBatcher:
   # -- dispatcher ---------------------------------------------------------
 
   def _take_batch(self) -> list[_Pending]:
-    """Block for work, then coalesce one same-scene batch (FIFO head's
-    scene). Returns [] only on stop."""
+    """Block for work, then coalesce one same-key batch (FIFO head's
+    key). Returns [] only on stop."""
     with self._cond:
       while True:
         # Cancelled requests (caller timed out) must neither stall the
@@ -353,11 +381,12 @@ class MicroBatcher:
         head = self._queue[0]
         t_assembly = self._clock()  # head claimed; straggler window opens
         deadline = head.t_enqueue + self.max_wait_s
-        # Straggler window: keep collecting same-scene requests until the
-        # batch is full or the head request's wait budget is spent.
+        # Straggler window: keep collecting same-key requests (same scene
+        # — and, for tiled scenes, the same render plan) until the batch
+        # is full or the head request's wait budget is spent.
         while True:
           same = sum(1 for r in self._queue
-                     if r.scene_id == head.scene_id
+                     if r.key == head.key
                      and not r.future.cancelled())
           remaining = deadline - self._clock()
           if same >= self.max_batch or remaining <= 0 or self._stop:
@@ -367,7 +396,7 @@ class MicroBatcher:
         for req in self._queue:
           if req.future.cancelled():
             continue
-          if req.scene_id == head.scene_id and len(batch) < self.max_batch:
+          if req.key == head.key and len(batch) < self.max_batch:
             batch.append(req)
           else:
             rest.append(req)
@@ -617,7 +646,9 @@ class MicroBatcher:
 
   def _run_flight(self, flight: _Flight) -> None:
     batch, recorder = flight.batch, flight.recorder
-    scene_id = batch[0].scene_id
+    # Providers get the batch KEY (scene id + tile signature for tiled
+    # scenes); metrics/traces keep the plain scene id via each request.
+    scene_id = batch[0].key
     poses = flight.poses
     handles: list = []
     d0 = self._clock()

@@ -229,9 +229,15 @@ def test_plane_affine_and_combine_affine(rng):
     _close(g, w)
 
 
-def test_over_composite_pallas_names_the_unported_kernel():
-  with pytest.raises(NotImplementedError, match="compose_pallas"):
-    tcompose.over_composite(torch.zeros(2, 4, 4, 4), "pallas")
+def test_over_composite_pallas_names_the_unported_kernel(rng):
+  """'pallas' is the CUDA compose kernel (kernels/compose_over.py); on CPU
+  tensors its plain version, equal to the JAX dispatcher's 'pallas'."""
+  rgba = rng.uniform(0, 1, (2, 4, 4, 4)).astype(np.float32)
+  got = tcompose.over_composite(_t(rgba), "pallas")
+  assert got.shape == (4, 4, 3)
+  _close(got, jcompose.over_composite(jnp.asarray(rgba), method="pallas"),
+         atol=1e-6)
+  assert torch.equal(got, tcompose.over_composite(_t(rgba), "scan"))
   with pytest.raises(ValueError, match="unknown composite method"):
     tcompose.over_composite(torch.zeros(2, 4, 4, 4), "bogus")
 
@@ -315,5 +321,8 @@ def test_render_mpi_cropped_target(rng):
   with pytest.raises(ValueError, match="fused_pallas"):
     trender.render_mpi(*map(_t, args), method="fused_pallas",
                        tgt_intrinsics=_t(k_t), out_hw=(30, 40))
+  got_pallas = trender.render_mpi(*map(_t, args), method="pallas",
+                                  tgt_intrinsics=_t(k_t), out_hw=(30, 40))
+  assert torch.equal(got_pallas, got)
   with pytest.raises(ValueError, match="unknown render method"):
-    trender.render_mpi(*map(_t, args), method="pallas")
+    trender.render_mpi(*map(_t, args), method="bogus")

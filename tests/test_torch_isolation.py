@@ -59,6 +59,15 @@ def test_scan_covers_the_training_slice():
     assert name in mods
 
 
+def test_scan_covers_the_tiled_serving_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.kernels.compose_over",
+               "mpi_vision_tpu_torch.serve.tiles",
+               "mpi_vision_tpu_torch.serve.server",
+               "mpi_vision_tpu_torch.serve.scheduler"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
@@ -106,6 +115,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
     RenderEngine()
   with pytest.raises(RuntimeError, match="no CUDA device"):
     RenderService()
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    RenderService(tile=8)
   rgba, depths, k = synthetic_scene("s", 8, 8, 2)
   with pytest.raises(RuntimeError, match="no CUDA device"):
     bake_scene("s", rgba, depths, k)
@@ -155,8 +166,15 @@ def test_kernel_build_is_lazy():
   keyed by the source and the flags."""
   from mpi_vision_tpu_torch.kernels import _build
 
-  assert {"render_fused", "render_fused_bwd"} <= set(_build.sources())
-  path = _build.library_path("render_fused")
-  assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
+  from mpi_vision_tpu_torch.kernels import compose_over
+
+  assert {"render_fused", "render_fused_bwd", "compose_over"} <= set(
+      _build.sources())
+  for name in ("render_fused", "compose_over"):
+    path = _build.library_path(name)
+    assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
+  # A CPU call runs the plain version and loads no library.
+  compose_over.over_composite_pallas(torch.zeros(2, 4, 4, 4))
+  assert "compose_over" not in _build._libs
   assert "-fmad=false" in _build.NVCC_FLAGS
   assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
