@@ -15,7 +15,8 @@ Phases:
      (translation + dolly, 1, 10 and 20 degree pans, a 30 degree pan past
      the TPU kernels' banded tier), which cover separable and general
      homographies: max |kernel - plain| <= 1e-4; a batch
-     of all five equals the single-view renders bit for bit; one scene
+     of all five equals the single-view renders bit for bit, and so does
+     every view of 9- and 16-view batches (several view chunks); one scene
      per view (the view-stride path) at a small size.
   4. serve (the main path): ``RenderService`` on the card with
      ``Convention.EXACT`` and two 1080p x 32-plane synthetic scenes, warmed
@@ -27,7 +28,8 @@ Phases:
      single-view kernel render; one agrees with the plain version;
      ``/stats`` shows a batch >= 2 on a CUDA engine; the kernel launched
      and the plain version ran nowhere on the path.
-  5. times: kernel ms (CUDA events, median of 20) at V = 1 and V = 8, the
+  5. times: kernel ms (CUDA events, median of 20) at V = 1 (the identity
+     and a 10 degree pan) and V = 8, the
      plain version's ms, the bound, the 8-view frame readback into pinned
      memory (CUDA events), the scheduler's per-frame host copies of one
      8-view flight (host clock), renders/s through the service, and the
@@ -40,7 +42,9 @@ Phases:
      nonzero; one scene under 3 views (view stride 0) against the sum of
      three single-view backwards (540p); one scene per view at a small
      size; planes that cross the camera's plane counted, and a pose whose
-     planes do (65 degree pan) checked at a small size.
+     planes do (65 degree pan) and a magnifying dolly whose tile preimages
+     take several shared-memory chunks checked at small sizes (kernel B
+     max_abs_err 0).
   7. train (the slice's main path): ``python -m mpi_vision_tpu_torch
      train``'s code path in process at ``TrainConfig()`` (224 px, 10
      planes, the full-width U-Net, VGG loss) on the card, one epoch over 8
@@ -50,7 +54,8 @@ Phases:
      step's loss and its gradients with the kernel backward against the
      plain backward (planes within 1e-4 of max |grad|, conv weights under
      ``cudnn.deterministic``), and times: the backward kernels at 1080p x
-     32 (V = 1, 8) beside their plain versions, the library call and the
+     32 (V = 1 under the identity and a 10 degree pan, V = 8) beside their
+     plain versions, the library call and the
      bound; the train step and its split (the profiler's busy time of the
      U-Net, render forward, kernels A and B, VGG loss, optimizer) and the
      card's busy share over steps.
@@ -391,12 +396,16 @@ def phase6_backward(torch, dev, planes, classes) -> dict:
   check(err_shared <= TOL, f"shared-scene backward: {err_shared}")
   del scene, shared, summed
 
-  # One scene per view (view stride != 0), and planes crossing the camera
-  # plane (the whole-image candidate scan), at small sizes.
+  # One scene per view (view stride != 0), planes crossing the camera
+  # plane (the whole-image scan) and a magnifying dolly whose near planes'
+  # tile preimages take several shared-memory chunks, at small sizes.
+  zoom = np.eye(4, dtype=np.float32)
+  zoom[2, 3] = -0.8
   for label, poses, (sp, sh, sw) in (
       ("one scene per view", np.stack([classes["pan_1deg"],
                                        classes["pan_10deg"]]), (8, 256, 384)),
-      ("65 degree pan", pan_pose(65.0)[None], (4, 48, 64))):
+      ("65 degree pan", pan_pose(65.0)[None], (4, 48, 64)),
+      ("dolly 0.8", zoom[None], (4, 96, 640))):
     homs = homs_at(torch, dev, poses, sp, sh, sw)
     views = len(poses)
     scenes = torch.rand(((views, sp, sh, sw, 4) if views > 1
@@ -409,10 +418,22 @@ def phase6_backward(torch, dev, planes, classes) -> dict:
                  rb.adjoint_warp(dwarped, homs, shared=views == 1),
                  rb.plain_adjoint_warp(dwarped, homs, shared=views == 1))
     n_cross = rb.sign_changing_planes(homs, sh, sw)
+    boxes = [box for hom in homs[0].cpu()
+             for box in torch.stack(rb.tile_boxes(hom, sh, sw)[:4],
+                                    1).tolist()]
+    chunks = max(len(rb.tile_chunks(box)) for box in boxes)
+    widest = max(box[3] - box[2] + 1 for box in boxes)
     log(f"backward vs plain [{label}, {sh}x{sw}x{sp}]: A {err_a:.3e}, B "
-        f"{err_b:.3e}, planes crossing the camera plane {n_cross}")
+        f"{err_b:.3e}, planes crossing the camera plane {n_cross}, most "
+        f"chunks a tile's preimage takes {chunks}, widest preimage "
+        f"{widest} columns")
+    if label != "one scene per view":
+      check(err_b == 0.0, f"B [{label}]: max_abs_err {err_b}, not 0")
     if label == "65 degree pan":
       check(n_cross > 0, "the crossing pose crosses no plane")
+    if label == "dolly 0.8":
+      check(chunks > 1 and widest > rb.SEG_MAX,
+            "the dolly's preimages fit one chunk or one segment a row")
     errs["rewarp_composite_vjp"] = max(errs["rewarp_composite_vjp"], err_a)
     errs["adjoint_warp"] = max(errs["adjoint_warp"], err_b)
   return errs
@@ -594,17 +615,21 @@ def train_times(torch, step_run) -> dict:
 
 
 def backward_times(torch, dev, planes) -> dict:
-  """Kernels A and B at 1080p x 32, V = 1 and 8 (CUDA events), their plain
-  versions, the library call and the bounds."""
+  """Kernels A and B at 1080p x 32 (CUDA events) at V = 1 under the
+  identity and a 10 degree pan and at V = 8, their plain versions, the
+  library call and the bounds."""
   from mpi_vision_tpu_torch.kernels import render_fused
   from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
 
   gen = torch.Generator(device=dev).manual_seed(5)
   grid, scale = render_fused.pixel_grid(HEIGHT, WIDTH, dev)
   out = {}
-  for views in (1, 8):
-    poses = np.stack([pan_pose(1.0 * i, 0.01 * i, -0.01 * i)
-                      for i in range(views)])
+  for label, poses in (
+      ("v1", pan_pose(0.0, 0.0, 0.0)[None]),
+      ("v1_pan10", pan_pose(10.0)[None]),
+      ("v8", np.stack([pan_pose(1.0 * i, 0.01 * i, -0.01 * i)
+                       for i in range(8)]))):
+    views = len(poses)
     homs = homs_at(torch, dev, poses, PLANES, HEIGHT, WIDTH)
     g = torch.randn((views, HEIGHT, WIDTH, 3), generator=gen, device=dev)
     dwarped = rb.rewarp_composite_vjp(planes, homs, g)
@@ -636,6 +661,9 @@ def backward_times(torch, dev, planes) -> dict:
           grad_out, images, grid_n, 0, 0, False, [True, False])[0]
 
     row["library_ms"] = cuda_ms(torch, library, 5, warm=1)
+    log(f"backward times [{label}]: A {row['a_ms']:.3f} ms, B "
+        f"{row['b_ms']:.3f} ms, library {row['library_ms']:.3f} ms (B "
+        f"{row['library_ms'] / row['b_ms']:.2f}x faster)")
     lib = library().reshape(views, PLANES, 4, HEIGHT, WIDTH).sum(0)
     row["library_vs_kernel_max_abs"] = float(
         (lib.permute(0, 2, 3, 1) - dplanes).abs().max())
@@ -644,7 +672,7 @@ def backward_times(torch, dev, planes) -> dict:
     for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
       row[f"bound_{key}_ms"], row[f"bound_{key}_by"] = bounds[name]
     row["bound_pair_ms"] = bounds["pair_ms"]
-    out[f"v{views}"] = row
+    out[label] = row
     torch.cuda.empty_cache()
   return out
 
@@ -1005,6 +1033,20 @@ def main() -> int:
         "a batch of views differs from the same views rendered alone")
   log("kernel batch of 5 == 5 single renders, bit for bit")
   del batch, singles
+  # More views than one block's chunk: V = 9 and 16 take several chunks.
+  for views in (9, 16):
+    homs_v = homs_for(np.stack([pan_pose(2.0 * i - 8.0, 0.01 * i)
+                                for i in range(views)]))
+    batch = render_fused.render_mpi_fused(planes, homs_v)
+    chunks = render_fused.launch_shape(views, PLANES, HEIGHT, WIDTH,
+                                       True)["grid"][2]
+    for i in range(views):
+      check(torch.equal(batch[i], render_fused.render_mpi_fused(
+          planes, homs_v[i:i + 1].contiguous())[0]),
+            f"view {i} of a {views}-view batch differs from its single render")
+    log(f"kernel batch of {views} ({chunks} view chunks) == {views} single "
+        f"renders, bit for bit")
+    del batch
   # One scene per view: the view-stride path, at a small size.
   sp, sh, sw = 8, 256, 384
   scenes = torch.rand((2, sp, sh, sw, 4), generator=gen, device=dev)
@@ -1160,6 +1202,9 @@ def main() -> int:
                 20, warm=3)
   ms8 = cuda_ms(torch, lambda: render_fused.render_mpi_fused(planes, homs8),
                 20, warm=3)
+  homs_pan10 = homs_for(pan_pose(10.0)[None])
+  ms1_pan10 = cuda_ms(torch, lambda: render_fused.render_mpi_fused(
+      planes, homs_pan10), 20, warm=3)
   plain1 = cuda_ms(torch, lambda: render_fused.plain_render(planes, homs1),
                    3, warm=1)
   plain8 = cuda_ms(torch, lambda: render_fused.plain_render(planes, homs8),
@@ -1178,7 +1223,8 @@ def main() -> int:
   times = {
       "card": card,
       "shape": [HEIGHT, WIDTH, PLANES],
-      "kernel_ms": {"v1": ms1, "v8": ms8, "v8_per_view": ms8 / 8},
+      "kernel_ms": {"v1": ms1, "v1_pan10": ms1_pan10, "v8": ms8,
+                    "v8_per_view": ms8 / 8},
       "plain_ms": {"v1": plain1, "v8": plain8},
       "bound_ms": {"v1": b1, "v1_by": by1, "v8": b8, "v8_by": by8},
       "bound_ms_per_view_scene_reread": PLANES * HEIGHT * WIDTH * 16
@@ -1230,19 +1276,23 @@ def main() -> int:
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- result lines --------------------------------------------------------
-  v1 = bwd_times["v1"]
+  v1, v1p, v8 = (bwd_times[k] for k in ("v1", "v1_pan10", "v8"))
   rows = [{"name": "render_fused", "launches": launches,
            "train_launches": train_launches["render_mpi_fused"],
            "max_abs_err": max_err, "views": 8, "ms": ms8,
            "plain_ms": plain8, "bound_ms": b8, "bound_by": by8,
-           "library_ms": None}]
+           "library_ms": None, "v1_ms": ms1, "v1_pan10_ms": ms1_pan10}]
   for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
     rows.append({"name": name, "launches": train_launches[name],
                  "max_abs_err": bwd_errs[name], "views": 1,
                  "ms": v1[f"{key}_ms"], "plain_ms": v1[f"plain_{key}_ms"],
                  "bound_ms": v1[f"bound_{key}_ms"],
                  "bound_by": v1[f"bound_{key}_by"],
-                 "library_ms": v1["library_ms"] if key == "b" else None})
+                 "library_ms": v1["library_ms"] if key == "b" else None,
+                 "v1_pan10_ms": v1p[f"{key}_ms"], "v8_ms": v8[f"{key}_ms"],
+                 "library_v1_pan10_ms":
+                     v1p["library_ms"] if key == "b" else None,
+                 "library_v8_ms": v8["library_ms"] if key == "b" else None})
   c8 = comp["f32_v8"]
   rows.append({"name": "over_composite", "launches": tiled["launches"],
                "max_abs_err": comp["max_abs_err"],

@@ -32,20 +32,32 @@
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s f32 without tensor cores),
 // 1080p x 32 planes. One view has to read every plane once, 1920*1080*32*16 B
-// = 1.06 GB, so it costs at least ~0.32 ms and is bandwidth bound. Its
-// arithmetic is 67 f32 operations per pixel and plane (warp 15, floor and
-// fractions 6, bilinear blend 36, composite 10; the 8 spent on the sampler's
-// round trip above are not needed and not counted), ~4.4 GFLOP a view
-// (~0.07 ms). Eight views of one resident scene still need only one scene
-// read (~0.38 ms with the frames), but ~36 GFLOP (~0.53 ms): at V = 8 the
-// bound is set by operations. The simple design here reads the scene once
-// per view and nothing more: one pass, one thread per output pixel, the
-// running composite in registers, no warped-plane stack in device memory,
-// and the view's P x 9 homography in shared memory. Neighbouring threads
-// read neighbouring source pixels for any smooth warp, so the taps coalesce;
-// the bilinear footprint re-reads each source pixel ~4 times from L1/L2, not
-// HBM. Reusing one plane read across views (one pass over the scene for a
-// whole batch) is the next step and is not done here.
+// = 1.06 GB: at least ~0.32 ms, bandwidth bound. Its arithmetic is 67 f32
+// operations per pixel and plane (warp 15, floor and fractions 6, bilinear
+// blend 36, composite 10; the 8 spent on the sampler's round trip are not
+// needed and not counted), ~4.4 GFLOP a view. Eight views of one resident
+// scene still need one scene read (~0.38 ms with the frames) but ~36 GFLOP
+// (~0.53 ms): at V = 8 operations bound it.
+//
+// Design. One thread per output pixel of a 32 x 8 tile; one block renders
+// that tile for a chunk of up to kViewChunk = 4 views of one scene
+// (blockIdx.z is the chunk), each thread keeping one running composite per
+// view in registers. Planes are the outer loop and views the inner one, so
+// plane p's neighbourhood of the tile is fetched from HBM once per chunk and
+// the chunk's other views find it in L1/L2 moments later: an 8-view flight
+// reads the scene twice, not eight times. One scene per view (view_stride
+// != 0) and V = 1 take a kernel built for chunks of one. The chunk's P x 9
+// maps per view sit in shared memory. A sample whose four taps all lie
+// inside the image takes one bounds test and 32-bit offsets from one row
+// base (render_sample.cuh); the plane offset stays 64-bit. At V = 8 issue
+// slots set the pace (~120 instructions a sample, with four IEEE divisions
+// and an unfused blend), so occupancy decides: the chunk of 4 under a
+// 48-register cap (five blocks an SM, 8 bytes of spill) beat chunks of 8
+// (80-94 registers, or spills at 64) and one view per block with the view
+// fastest in the grid, timed on an H100 (PERF.md). A view's
+// pixels do not depend on its chunk or its neighbours: each view's
+// composite is the same expression sequence whatever else the block
+// renders.
 
 #include <cuda_runtime.h>
 
@@ -55,18 +67,26 @@ namespace {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr int kViewChunk = 4;  // views per block of a shared scene
+// Five blocks of 256 threads to an SM: at most 48 registers a thread.
+constexpr int kMinBlocks = 5;
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// kNV: the most views a block renders. A chunk of one keeps one composite
+// in registers, not kViewChunk of them.
+template <int kNV>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
 render_fused_kernel(const float4* __restrict__ planes,
                     const float* __restrict__ homs,
-                    float* __restrict__ out, int num_planes, int height,
-                    int width, long long view_stride4) {
-  extern __shared__ float sh_homs[];  // [num_planes * 9]
-  const int view = blockIdx.z;
-  const float* view_homs = homs + static_cast<long long>(view) * num_planes * 9;
+                    float* __restrict__ out, int views, int view_chunk,
+                    int num_planes, int height, int width,
+                    long long view_stride4) {
+  extern __shared__ float sh_homs[];  // [nv, num_planes, 9]
+  const int v0 = blockIdx.z * view_chunk;
+  const int nv = min(view_chunk, views - v0);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < num_planes * 9; i += blockDim.x * blockDim.y) {
-    sh_homs[i] = view_homs[i];
+  const float* chunk_homs = homs + static_cast<long long>(v0) * num_planes * 9;
+  for (int i = tid; i < nv * num_planes * 9; i += blockDim.x * blockDim.y) {
+    sh_homs[i] = chunk_homs[i];
   }
   __syncthreads();
 
@@ -79,29 +99,42 @@ render_fused_kernel(const float4* __restrict__ planes,
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const long long plane_size = static_cast<long long>(height) * width;
-  const float4* scene = planes + view_stride4 * view;
+  // With a stride, the chunk is one view and this is its scene.
+  const float4* scene = planes + view_stride4 * v0;
 
-  float r = 0.f, g = 0.f, b = 0.f;
+  float r[kNV], g[kNV], b[kNV];
   for (int p = 0; p < num_planes; ++p) {
-    float px, py;
-    warp_point(sh_homs + p * 9, ox, oy, fw, fh, &px, &py);
-    const float4 s = sample_plane(scene + plane_size * p, px, py, width,
-                                  height);
-    if (p == 0) {  // farthest plane: alpha ignored
-      r = s.x;
-      g = s.y;
-      b = s.z;
-    } else {
-      const float keep = 1.f - s.w;
-      r = s.x * s.w + r * keep;
-      g = s.y * s.w + g * keep;
-      b = s.z * s.w + b * keep;
+    const float4* plane = scene + plane_size * p;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      if (k < nv) {
+        float px, py;
+        warp_point(sh_homs + (k * num_planes + p) * 9, ox, oy, fw, fh, &px,
+                   &py);
+        const float4 s = sample_plane(plane, px, py, width, height);
+        if (p == 0) {  // farthest plane: alpha ignored
+          r[k] = s.x;
+          g[k] = s.y;
+          b[k] = s.z;
+        } else {
+          const float keep = 1.f - s.w;
+          r[k] = s.x * s.w + r[k] * keep;
+          g[k] = s.y * s.w + g[k] * keep;
+          b[k] = s.z * s.w + b[k] * keep;
+        }
+      }
     }
   }
-  float* dst = out + ((static_cast<long long>(view) * height + y) * width + x) * 3;
-  dst[0] = r;
-  dst[1] = g;
-  dst[2] = b;
+  const long long pixel = static_cast<long long>(y) * width + x;
+#pragma unroll
+  for (int k = 0; k < kNV; ++k) {
+    if (k < nv) {
+      float* dst = out + ((v0 + k) * plane_size + pixel) * 3;
+      dst[0] = r[k];
+      dst[1] = g[k];
+      dst[2] = b[k];
+    }
+  }
 }
 
 }  // namespace
@@ -114,13 +147,19 @@ extern "C" int mpi_render_fused(const void* planes, const void* homs,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kBlockX, kBlockY, 1);
+  const int chunk =
+      view_stride != 0 ? 1 : (views < kViewChunk ? views : kViewChunk);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY, views);
-  const size_t smem = static_cast<size_t>(num_planes) * 9 * sizeof(float);
-  render_fused_kernel<<<grid, block, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+                  (height + kBlockY - 1) / kBlockY,
+                  (views + chunk - 1) / chunk);
+  const dim3 block(kBlockX, kBlockY, 1);
+  const size_t smem =
+      static_cast<size_t>(chunk) * num_planes * 9 * sizeof(float);
+  auto kernel = chunk == 1 ? render_fused_kernel<1>
+                           : render_fused_kernel<kViewChunk>;
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(planes), static_cast<const float*>(homs),
-      static_cast<float*>(out), num_planes, height, width, view_stride / 4);
+      static_cast<float*>(out), views, chunk, num_planes, height, width,
+      view_stride / 4);
   return static_cast<int>(cudaGetLastError());
 }

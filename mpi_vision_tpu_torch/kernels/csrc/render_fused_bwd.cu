@@ -28,24 +28,54 @@
 // reverse pass reads it back and overwrites it with the gradient: no
 // scratch allocation and no warped stack beyond the output itself.
 //
-// Kernel B, one thread per source pixel (x, y) of plane p (of one scene),
-// is the warp transpose in gather form:
-//   d plane(x, y) = sum_v sum_{(j, i)} dwarped[v, p, i, j]
+// Kernel B is the warp transpose in gather form:
+//   d plane(x, y) = sum_v sum_{(i, j)} dwarped[v, p, i, j]
 //                   * k_y(py(j, i), y) * k_x(px(j, i), x)
-// over the target pixels whose forward sample point (px, py) - the forward
-// kernel's own f32 expression, its d == 0 nudge and its reach guard - puts
-// (x, y) among its four bilinear taps, with k the tap's forward weight
-// (1 - frac or frac). Candidates come from the preimage of the box
-// (x +- 1, y +- 1): its corners mapped through the inverse homography (in
-// double), their integer bounding box widened to floor/ceil and clamped to
-// the image. Where the inverse denominator is not one-signed over the box
-// (the plane crosses the camera's plane there, so the preimage is
-// unbounded), the thread scans the whole image: slow, and right. Each
-// thread sums its views and candidates in a fixed order (views, rows,
-// columns), so the gradient is deterministic, with no atomics and no
-// scatter. With one scene shared by all views (view stride 0, the training
-// path at batch 1) the views sum into one gradient; otherwise each view's
-// scene gets its own.
+// over the target pixels (j, i) whose forward sample point (px, py) - the
+// forward kernel's own f32 expression, its d == 0 nudge and its reach guard
+// - puts source pixel (x, y) among its four bilinear taps, with k the tap's
+// forward weight (1 - frac or frac). Each source pixel sums its hits in
+// ascending (view, i, j), so the gradient is deterministic: no global and
+// no shared-memory atomics. With one scene shared by all views (view stride
+// 0, the training path at batch 1) the views sum into one gradient;
+// otherwise each view's scene gets its own.
+//
+// Kernel B's design. One block is one 64 x 16 source tile of one plane:
+// 256 threads, one per column, each summing four rows. It loops over the
+// views in order and works out each view's geometry once for the tile:
+//   1. Warp 0 maps the tile's corners +- 1 through the inverse map in
+//      double (one adjugate entry and one corner per lane) and takes the
+//      integer bounding box of the result, widened to floor/ceil (which
+//      absorbs the forward's f32 rounding) and clamped to the image: the
+//      tile's preimage. Where the inverse denominator is not one-signed
+//      over the tile's box (the plane crosses the camera's plane there and
+//      the preimage is unbounded) the box is the whole image: slow, and
+//      right.
+//   2. The preimage is staged in shared memory in chunks of row segments
+//      taken in ascending (i, j): a row wider than kSegMax is cut into
+//      equal segments, so a magnified or whole-image preimage goes through
+//      the same ~40 KB in more chunks. For each staged target one thread
+//      evaluates warp_point once and keeps its sample point (kNoTap out of
+//      reach); its dwarped value comes in by cp.async, coalesced 16-byte
+//      copies along the row. dwarped is read once per tile plus a halo.
+//   3. One warp per segment scans the running max of the tap origins x0
+//      from the left and their running min from the right. Both are
+//      monotone whatever the f32 rounding did to x0, so for each tile
+//      column x the targets with x0 in {x - 1, x} lie in one span of the
+//      segment; the warp writes every column's span into a byte table, and
+//      the segment's y0 range.
+//   4. Each thread skips the segments whose y0 range misses its rows and
+//      reads each entry of its column's span once for its four rows.
+// The hits, their order and their expressions are the per-pixel scan's,
+// so the kernel equals plain_adjoint_warp (which scans each pixel's own
+// candidate box) to the bit: non-hits add nothing. render_fused_bwd.py's
+// tile_boxes / tile_chunks / tile_scan are the plain mirror of steps 1-4.
+//
+// What bounds it. Its bytes (dwarped in, d planes out) take ~0.63 ms at
+// 1080p x 32; it runs at ~3.5x that. Each phase is a dependent chain
+// (the box's divisions, warp_point's four IEEE divisions before the copy,
+// the warp scans, the span reads) between barriers, and five blocks of
+// eight warps an SM (48 registers, with spills) do not hide it all.
 //
 // Layouts (float32): planes [P, H, W, 4] shared, or [V, P, H, W, 4] at
 // `view_stride` floats per view; homs [V, P, 3, 3] target -> source pixels;
@@ -57,17 +87,20 @@
 // ~4.25 GB, ~1.27 ms. A's arithmetic is the forward's 67 operations per
 // pixel and plane plus 15 for the VJP, B's ~57 per target sample it
 // transposes: each is far under its byte time, so both are bandwidth bound.
-// This simple design spends bytes beyond the bound on A's parked records
-// (written and read back once) and on B's candidate taps (re-read from L1/
-// L2, and ~2-4x more candidates evaluated than hit).
+// A spends bytes beyond the bound on its parked records (written and read
+// back once); B on the preimage's halo (~1.4 targets staged per source
+// pixel near the identity).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <math.h>
 
 #include "render_sample.cuh"
 
 namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
@@ -137,140 +170,365 @@ rewarp_composite_vjp_kernel(const float4* __restrict__ planes,
   out[0] = make_float4(g0, g1, g2, 0.f);
 }
 
-// Inverse of the row-major 3x3 `h` (float) into `inv` (double): adjugate
-// over determinant. A singular map gives non-finite entries, which send
-// candidate_box to the whole image.
-__device__ void invert3x3(const float* h, double* inv) {
-  const double m0 = h[0], m1 = h[1], m2 = h[2], m3 = h[3], m4 = h[4],
-               m5 = h[5], m6 = h[6], m7 = h[7], m8 = h[8];
-  const double c00 = m4 * m8 - m5 * m7;
-  const double c01 = m5 * m6 - m3 * m8;
-  const double c02 = m3 * m7 - m4 * m6;
-  const double det = m0 * c00 + m1 * c01 + m2 * c02;
-  inv[0] = c00 / det;
-  inv[1] = (m2 * m7 - m1 * m8) / det;
-  inv[2] = (m1 * m5 - m2 * m4) / det;
-  inv[3] = c01 / det;
-  inv[4] = (m0 * m8 - m2 * m6) / det;
-  inv[5] = (m2 * m3 - m0 * m5) / det;
-  inv[6] = c02 / det;
-  inv[7] = (m1 * m6 - m0 * m7) / det;
-  inv[8] = (m0 * m4 - m1 * m3) / det;
-}
-
-// Target pixels [i_lo, i_hi] x [j_lo, j_hi] that can sample source pixel
-// (x, y): the bounding box of the box (x +- 1, y +- 1) mapped through the
-// inverse map `hi`, widened to floor/ceil (which absorbs the forward's f32
-// rounding) and clamped to the image. The whole image where the inverse
-// denominator is not one-signed over the box (or anything is non-finite).
-// An empty box comes back with lo > hi.
-__device__ void candidate_box(const double* hi, int x, int y, int width,
-                              int height, int* i_lo, int* i_hi, int* j_lo,
-                              int* j_hi) {
-  double jmin = INFINITY, jmax = -INFINITY, imin = INFINITY, imax = -INFINITY;
-  bool pos = true, neg = true;
-  for (int c = 0; c < 4; ++c) {
-    const double cx = x + ((c & 1) ? 1.0 : -1.0);
-    const double cy = y + ((c & 2) ? 1.0 : -1.0);
-    const double e = hi[6] * cx + hi[7] * cy + hi[8];
-    const double tol =
-        1e-7 * (fabs(hi[6] * cx) + fabs(hi[7] * cy) + fabs(hi[8]));
-    pos = pos && e > tol;
-    neg = neg && e < -tol;
-    const double jc = (hi[0] * cx + hi[1] * cy + hi[2]) / e;
-    const double ic = (hi[3] * cx + hi[4] * cy + hi[5]) / e;
-    jmin = fmin(jmin, jc);
-    jmax = fmax(jmax, jc);
-    imin = fmin(imin, ic);
-    imax = fmax(imax, ic);
+// Warp 0 of a block maps the corners (cx_lo | cx_hi, cy_lo | cy_hi) of a
+// source box through the inverse of the row-major 3x3 `hv` (float, target
+// -> source pixels) in double, and lane 0 writes box = {i_lo, i_hi, j_lo,
+// j_hi}: the target pixels that can sample a source pixel of the box's
+// interior. The corners' integer bounding box, widened to floor/ceil and
+// clamped to the image; the whole image where the inverse denominator is
+// not one-signed over the corners (or anything is non-finite); lo > hi
+// where the box maps outside the image. Lane t < 9 divides one adjugate
+// entry by the determinant, lanes 4k + c map corner c, so the chain is two
+// divisions deep. Also copies the map to sh_h. render_fused_bwd.py's
+// preimage_boxes is its plain mirror.
+__device__ void preimage_box(const float* __restrict__ hv, int lane,
+                             double cx_lo, double cx_hi, double cy_lo,
+                             double cy_hi, int width, int height, float* sh_h,
+                             int* box) {
+  double m[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) m[c] = __ldg(hv + c);
+  if (lane < 9) sh_h[lane] = hv[lane];
+  const double c00 = m[4] * m[8] - m[5] * m[7];
+  const double c01 = m[5] * m[6] - m[3] * m[8];
+  const double c02 = m[3] * m[7] - m[4] * m[6];
+  const double det = m[0] * c00 + m[1] * c01 + m[2] * c02;
+  const double adj[9] = {c00, m[2] * m[7] - m[1] * m[8],
+                         m[1] * m[5] - m[2] * m[4], c01,
+                         m[0] * m[8] - m[2] * m[6], m[2] * m[3] - m[0] * m[5],
+                         c02, m[1] * m[6] - m[0] * m[7],
+                         m[0] * m[4] - m[1] * m[3]};
+  double mine = 0.0;
+#pragma unroll
+  for (int c = 0; c < 9; ++c) {
+    if (lane % 9 == c) mine = adj[c];
   }
+  mine = mine / det;
+  double hi[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) hi[c] = __shfl_sync(kFullMask, mine, c);
+  const int corner = lane & 3;
+  const double cx = (corner & 1) ? cx_hi : cx_lo;
+  const double cy = (corner & 2) ? cy_hi : cy_lo;
+  const double e = hi[6] * cx + hi[7] * cy + hi[8];
+  const double tol =
+      1e-7 * (fabs(hi[6] * cx) + fabs(hi[7] * cy) + fabs(hi[8]));
+  double jmin = (hi[0] * cx + hi[1] * cy + hi[2]) / e;
+  double imin = (hi[3] * cx + hi[4] * cy + hi[5]) / e;
+  double jmax = jmin, imax = imin;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    jmin = fmin(jmin, __shfl_xor_sync(kFullMask, jmin, o));
+    jmax = fmax(jmax, __shfl_xor_sync(kFullMask, jmax, o));
+    imin = fmin(imin, __shfl_xor_sync(kFullMask, imin, o));
+    imax = fmax(imax, __shfl_xor_sync(kFullMask, imax, o));
+  }
+  const bool pos = (__ballot_sync(kFullMask, e > tol) & 0xfu) == 0xfu;
+  const bool neg = (__ballot_sync(kFullMask, e < -tol) & 0xfu) == 0xfu;
+  if (lane != 0) return;
   if (!(pos || neg) || !isfinite(jmin) || !isfinite(jmax) ||
       !isfinite(imin) || !isfinite(imax)) {
-    *i_lo = 0;
-    *i_hi = height - 1;
-    *j_lo = 0;
-    *j_hi = width - 1;
+    box[0] = 0;
+    box[1] = height - 1;
+    box[2] = 0;
+    box[3] = width - 1;
     return;
   }
   if (jmax < 0.0 || jmin > width - 1.0 || imax < 0.0 ||
       imin > height - 1.0) {
-    *i_lo = 1;
-    *i_hi = 0;
-    *j_lo = 1;
-    *j_hi = 0;
+    box[0] = 1;
+    box[1] = 0;
+    box[2] = 1;
+    box[3] = 0;
     return;
   }
-  *j_lo = static_cast<int>(fmax(floor(jmin), 0.0));
-  *j_hi = static_cast<int>(fmin(ceil(jmax), width - 1.0));
-  *i_lo = static_cast<int>(fmax(floor(imin), 0.0));
-  *i_hi = static_cast<int>(fmin(ceil(imax), height - 1.0));
+  box[0] = static_cast<int>(fmax(floor(imin), 0.0));
+  box[1] = static_cast<int>(fmin(ceil(imax), height - 1.0));
+  box[2] = static_cast<int>(fmax(floor(jmin), 0.0));
+  box[3] = static_cast<int>(fmin(ceil(jmax), width - 1.0));
 }
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+constexpr int kTileX = 64;  // source columns of a tile (threads)
+constexpr int kRows = 4;    // source rows per thread
+constexpr int kThreadsY = 4;
+constexpr int kTileY = kThreadsY * kRows;
+constexpr int kTileThreads = kTileX * kThreadsY;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kChunk = 1536;  // staged targets per chunk
+constexpr int kMaxSegs = 32;  // staged row segments per chunk
+constexpr int kSegMax = 240;  // widest row segment (spans fit a byte)
+// Five blocks to an SM (a chunk is ~40 KB): at most 51 registers.
+constexpr int kMinBlocks = 5;
+constexpr int kNoTap = -2;  // tap origin of a target out of reach: a
+                            // reachable one is >= -1, so none matches it
+
+// One chunk of a tile's preimage, in dynamic shared memory.
+struct Staged {
+  float4 dw[kChunk];  // dwarped of the target
+  float2 pt[kChunk];  // its sample point (px, py); (kNoTap, kNoTap) out of
+                      // reach, so its tap origin floors to kNoTap
+  int2 yrange[kMaxSegs];  // the segment's (min, max) y0 over reachable taps
+  // Per segment and tile column x: the span [lo, hi) of the segment holding
+  // every target with x0 in {x - 1, x}.
+  unsigned char lo[kMaxSegs][kTileX];
+  unsigned char hi[kMaxSegs][kTileX];
+};
+
+// The tap origin (x0, y0) of a staged sample point.
+__device__ __forceinline__ int2 tap_of(float2 pt) {
+  return make_int2(static_cast<int>(floorf(pt.x)),
+                   static_cast<int>(floorf(pt.y)));
+}
+
+// 16 bytes from global to shared memory without a register round trip
+// (cp.async); `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void copy16_async(void* smem_dst,
+                                             const void* gmem_src,
+                                             bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ int warp_scan_max(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFullMask, v, o);
+    if (lane >= o) v = max(v, n);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_scan_min(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFullMask, v, o);
+    if (lane >= o) v = min(v, n);
+  }
+  return v;
+}
+
+// Sets table[col - x_lo] = value for the tile columns col in [a, b]. The
+// bounds reach INT_MIN and INT_MAX: clamp before subtracting.
+__device__ __forceinline__ void fill_span(unsigned char* table, int x_lo,
+                                          int a, int b, int value) {
+  const int to = min(b, x_lo + kTileX - 1);
+  for (int col = max(a, x_lo); col <= to; ++col) {
+    table[col - x_lo] = static_cast<unsigned char>(value);
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
 adjoint_warp_kernel(const float4* __restrict__ dwarped,
                     const float* __restrict__ homs,
                     float4* __restrict__ dplanes, int views, int num_planes,
                     int height, int width, int shared) {
-  // [nv * 9] inverse maps (double), then [nv * 9] forward maps (float).
-  extern __shared__ double sh_inv[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Staged& st = *reinterpret_cast<Staged*>(smem_raw);
+  __shared__ float sh_h[9];
+  __shared__ int sh_box[4];
   const int p = blockIdx.z % num_planes;
   const int scene = blockIdx.z / num_planes;
   const int v_begin = shared ? 0 : scene;
   const int nv = shared ? views : 1;
-  float* sh_homs = reinterpret_cast<float*>(sh_inv + nv * 9);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < nv * 9; i += nthreads) {
-    sh_homs[i] = homs[(static_cast<long long>(v_begin + i / 9) * num_planes + p)
-                      * 9 + i % 9];
-  }
-  __syncthreads();
-  for (int k = tid; k < nv; k += nthreads) {
-    invert3x3(sh_homs + k * 9, sh_inv + k * 9);
-  }
-  __syncthreads();
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int x_lo = blockIdx.x * kTileX;
+  const int y_lo = blockIdx.y * kTileY;
+  const int x = x_lo + threadIdx.x;
+  const int xc = threadIdx.x;
+  const int y_a = y_lo + threadIdx.y * kRows;  // this thread's first row
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
   const long long plane_size = static_cast<long long>(height) * width;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = 0; k < nv; ++k) {
-    const float* h = sh_homs + k * 9;
-    const float4* dw = dwarped
-        + (static_cast<long long>(v_begin + k) * num_planes + p) * plane_size;
-    int i_lo, i_hi, j_lo, j_hi;
-    candidate_box(sh_inv + k * 9, x, y, width, height, &i_lo, &i_hi, &j_lo,
-                  &j_hi);
-    for (int i = i_lo; i <= i_hi; ++i) {
-      for (int j = j_lo; j <= j_hi; ++j) {
-        float px, py;
-        warp_point(h, static_cast<float>(j), static_cast<float>(i), fw, fh,
-                   &px, &py);
-        if (!in_reach(px, py, fw, fh)) continue;
-        const float x0f = floorf(px);
-        const float y0f = floorf(py);
-        const int x0 = static_cast<int>(x0f);
-        const int y0 = static_cast<int>(y0f);
-        if ((x0 != x && x0 + 1 != x) || (y0 != y && y0 + 1 != y)) continue;
-        const float wx = px - x0f;
-        const float wy = py - y0f;
-        const float kx = x0 == x ? 1.f - wx : wx;
-        const float ky = y0 == y ? 1.f - wy : wy;
-        const float kk = ky * kx;
-        const float4 d = __ldg(dw + static_cast<long long>(i) * width + j);
-        acc.x = acc.x + d.x * kk;
-        acc.y = acc.y + d.y * kk;
-        acc.z = acc.z + d.z * kk;
-        acc.w = acc.w + d.w * kk;
+    const int v = v_begin + k;
+    if (warp == 0) {
+      preimage_box(homs + (static_cast<long long>(v) * num_planes + p) * 9,
+                   lane, x_lo - 1.0, min(x_lo + kTileX - 1, width - 1) + 1.0,
+                   y_lo - 1.0, min(y_lo + kTileY - 1, height - 1) + 1.0,
+                   width, height, sh_h, sh_box);
+    }
+    __syncthreads();
+    const int i_lo = sh_box[0], i_hi = sh_box[1];
+    const int j_lo = sh_box[2], j_hi = sh_box[3];
+    const float4* dw =
+        dwarped + (static_cast<long long>(v) * num_planes + p) * plane_size;
+    // Row segments in ascending (i, j): `pieces` equal segments per row.
+    const int box_w = j_hi - j_lo + 1;
+    const int rows = i_hi - i_lo + 1;
+    const int pieces = max(1, (box_w + kSegMax - 1) / kSegMax);
+    const int seg_w = max(1, (box_w + pieces - 1) / pieces);
+    const int segs = (rows > 0 && box_w > 0) ? rows * pieces : 0;
+    const int per_chunk = min(kMaxSegs, kChunk / seg_w);
+    const int step_s = kTileThreads / seg_w;
+    const int step_c = kTileThreads - step_s * seg_w;
+    for (int s0 = 0; s0 < segs; s0 += per_chunk) {
+      const int ns = min(per_chunk, segs - s0);
+      // 1. Stage: warp_point once per target, its dwarped copied to shared
+      // memory asynchronously (coalesced 16-byte copies along the row).
+      // Entry e is column c of segment s; (s, c) steps by kTileThreads
+      // without a division.
+      int s = tid / seg_w;
+      int c = tid - s * seg_w;
+      for (int e = tid; e < ns * seg_w; e += kTileThreads) {
+        const int gs = s0 + s;
+        const int i = i_lo + (pieces == 1 ? gs : gs / pieces);
+        const int j = j_lo + (pieces == 1 ? 0 : (gs % pieces) * seg_w) + c;
+        float2 pt = make_float2(kNoTap, kNoTap);
+        bool reach = false;
+        if (j <= j_hi) {
+          float px, py;
+          warp_point(sh_h, static_cast<float>(j), static_cast<float>(i), fw,
+                     fh, &px, &py);
+          reach = in_reach(px, py, fw, fh);
+          if (reach) pt = make_float2(px, py);
+        }
+        copy16_async(&st.dw[e], dw + (reach ? i * width + j : 0), reach);
+        st.pt[e] = pt;
+        s += step_s;
+        c += step_c;
+        if (c >= seg_w) {
+          c -= seg_w;
+          ++s;
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      // 2. Spans, one warp per segment. pmax (max of x0 from the left) and
+      // smin (min of x0 from the right) are monotone, so for each column x
+      // the targets with x0 in {x - 1, x} lie in
+      //   [lo, hi) = [first c with pmax >= x - 1, first c with smin > x).
+      // Entry c owns the columns whose lo is c (x - 1 in (pmax[c-1],
+      // pmax[c]]) and whose hi is c + 1 (x in [smin[c], smin[c+1])): short
+      // ranges, one or two columns near the identity. The long ranges at
+      // either end (below the first reachable target's x0, above the
+      // largest; below the smallest x0, from the last reachable target's
+      // on) are filled by the whole warp. Every column is written once.
+      for (int seg = warp; seg < ns; seg += kTileWarps) {
+        const int base = seg * seg_w;
+        unsigned char* lo_row = st.lo[seg];
+        unsigned char* hi_row = st.hi[seg];
+        int run = INT_MIN, ymn = INT_MAX, ymx = INT_MIN;
+        int first = seg_w, first_x0 = 0;  // first reachable target
+        for (int c0 = 0; c0 < seg_w; c0 += 32) {
+          const int cc = c0 + lane;
+          const int2 t = cc < seg_w ? tap_of(st.pt[base + cc])
+                                    : make_int2(kNoTap, kNoTap);
+          const bool ok = t.x != kNoTap;
+          if (ok) {
+            ymn = min(ymn, t.y);
+            ymx = max(ymx, t.y);
+          }
+          const unsigned hits = __ballot_sync(kFullMask, ok);
+          if (first == seg_w && hits != 0u) {
+            const int src = __ffs(hits) - 1;
+            first = c0 + src;
+            first_x0 = __shfl_sync(kFullMask, t.x, src);
+          }
+          const int m = max(warp_scan_max(ok ? t.x : INT_MIN, lane), run);
+          int prev = __shfl_up_sync(kFullMask, m, 1);
+          if (lane == 0) prev = run;
+          if (cc < seg_w && prev != INT_MIN) {
+            fill_span(lo_row, x_lo, prev + 2, m + 1, cc);
+          }
+          run = __shfl_sync(kFullMask, m, 31);
+        }
+        const int last_max = run;  // INT_MIN: nothing reachable
+        run = INT_MAX;
+        int last = -1, last_x0 = 0;  // last reachable target
+        for (int c0 = 0; c0 < seg_w; c0 += 32) {
+          const int cc = seg_w - 1 - (c0 + lane);  // from the segment's end
+          const int tx = cc >= 0 ? tap_of(st.pt[base + cc]).x : kNoTap;
+          const unsigned hits = __ballot_sync(kFullMask, tx != kNoTap);
+          if (last < 0 && hits != 0u) {
+            const int src = __ffs(hits) - 1;
+            last = seg_w - 1 - (c0 + src);
+            last_x0 = __shfl_sync(kFullMask, tx, src);
+          }
+          const int m =
+              min(warp_scan_min(tx != kNoTap ? tx : INT_MAX, lane), run);
+          int next = __shfl_up_sync(kFullMask, m, 1);  // smin[cc + 1]
+          if (lane == 0) next = run;
+          if (cc >= 0 && next != INT_MAX) {
+            fill_span(hi_row, x_lo, m, next - 1, cc + 1);
+          }
+          run = __shfl_sync(kFullMask, m, 31);
+        }
+        const int first_min = run;
+        for (int col = lane; col < kTileX; col += 32) {
+          const int x_col = x_lo + col;
+          if (last < 0) {  // nothing reachable: an empty span
+            lo_row[col] = 0;
+            hi_row[col] = 0;
+            continue;
+          }
+          if (x_col - 1 <= first_x0) lo_row[col] = first;
+          if (x_col - 1 > last_max) lo_row[col] = seg_w;
+          if (x_col < first_min) hi_row[col] = 0;
+          if (x_col >= last_x0) hi_row[col] = last + 1;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          ymn = min(ymn, __shfl_xor_sync(kFullMask, ymn, o));
+          ymx = max(ymx, __shfl_xor_sync(kFullMask, ymx, o));
+        }
+        if (lane == 0) st.yrange[seg] = make_int2(ymn, ymx);
+      }
+      __syncthreads();
+      // 3. Sums: the thread's column x, rows y_a .. y_a + kRows - 1; each
+      // span entry read once for all of them.
+      for (int seg = 0; seg < ns; ++seg) {
+        const int2 yr = st.yrange[seg];
+        if (yr.y < y_a - 1 || yr.x > y_a + kRows - 1) continue;
+        const int base = seg * seg_w;
+        const int end = base + st.hi[seg][xc];
+        for (int e = base + st.lo[seg][xc]; e < end; ++e) {
+          // The tap origin and fractions, as the forward computes them.
+          const float2 q = st.pt[e];
+          const float x0f = floorf(q.x);
+          const int2 t = make_int2(static_cast<int>(x0f),
+                                   static_cast<int>(floorf(q.y)));
+          if (t.x != x && t.x + 1 != x) continue;
+          const float2 f = make_float2(q.x - x0f, q.y - floorf(q.y));
+          const float kx = t.x == x ? 1.f - f.x : f.x;
+          const float4 d = st.dw[e];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const int y = y_a + r;
+            if (t.y == y || t.y + 1 == y) {
+              const float ky = t.y == y ? 1.f - f.y : f.y;
+              const float kk = ky * kx;
+              acc[r].x = acc[r].x + d.x * kk;
+              acc[r].y = acc[r].y + d.y * kk;
+              acc[r].z = acc[r].z + d.z * kk;
+              acc[r].w = acc[r].w + d.w * kk;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // An empty preimage skips the chunk loop and its barriers: hold warp 0
+    // back from the next view's map until every thread has read the box.
+    __syncthreads();
+  }
+  if (x < width) {
+    float4* out = dplanes
+        + (static_cast<long long>(scene) * num_planes + p) * plane_size + x;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (y_a + r < height) {
+        out[static_cast<long long>(y_a + r) * width] = acc[r];
       }
     }
   }
-  dplanes[(static_cast<long long>(scene) * num_planes + p) * plane_size
-          + static_cast<long long>(y) * width + x] = acc;
 }
 
 }  // namespace
@@ -306,12 +564,10 @@ extern "C" int mpi_adjoint_warp(const void* dwarped, const void* homs,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int scenes = shared ? 1 : views;
-  const int nv = shared ? views : 1;
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY, scenes * num_planes);
-  const size_t smem =
-      static_cast<size_t>(nv) * 9 * (sizeof(double) + sizeof(float));
+  const dim3 block(kTileX, kThreadsY, 1);
+  const dim3 grid((width + kTileX - 1) / kTileX,
+                  (height + kTileY - 1) / kTileY, scenes * num_planes);
+  const size_t smem = sizeof(Staged);  // ~40 KB: no opt-in needed
   adjoint_warp_kernel<<<grid, block, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(dwarped), static_cast<const float*>(homs),

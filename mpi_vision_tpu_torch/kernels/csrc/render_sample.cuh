@@ -10,13 +10,15 @@
 
 #include <cuda_runtime.h>
 
+// One tap of `plane` ([H, W] float4), zero outside the image. Offsets inside
+// a plane are 32-bit: the wrappers refuse planes of 2^31 pixels or more.
 __device__ __forceinline__ float4 load_tap(const float4* __restrict__ plane,
                                            int x, int y, int width,
                                            int height) {
   if (x < 0 || x >= width || y < 0 || y >= height) {
     return make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  return __ldg(plane + static_cast<long long>(y) * width + x);
+  return __ldg(plane + (y * width + x));
 }
 
 // Source pixel (px, py) of target pixel (ox, oy) under the 3x3 map h
@@ -59,10 +61,20 @@ __device__ __forceinline__ float4 sample_plane(const float4* __restrict__ plane,
   const float wy = py - y0f;
   const int x0 = static_cast<int>(x0f);
   const int y0 = static_cast<int>(y0f);
-  const float4 v00 = load_tap(plane, x0, y0, width, height);
-  const float4 v01 = load_tap(plane, x0 + 1, y0, width, height);
-  const float4 v10 = load_tap(plane, x0, y0 + 1, width, height);
-  const float4 v11 = load_tap(plane, x0 + 1, y0 + 1, width, height);
+  float4 v00, v01, v10, v11;
+  if (x0 >= 0 && x0 + 1 < width && y0 >= 0 && y0 + 1 < height) {
+    // All four taps inside: one bounds test, one 32-bit row base.
+    const float4* row = plane + (y0 * width + x0);
+    v00 = __ldg(row);
+    v01 = __ldg(row + 1);
+    v10 = __ldg(row + width);
+    v11 = __ldg(row + width + 1);
+  } else {  // the image's edge: each tap zeroed on its own
+    v00 = load_tap(plane, x0, y0, width, height);
+    v01 = load_tap(plane, x0 + 1, y0, width, height);
+    v10 = load_tap(plane, x0, y0 + 1, width, height);
+    v11 = load_tap(plane, x0 + 1, y0 + 1, width, height);
+  }
   const float ax = 1.f - wx;
   const float ay = 1.f - wy;
   s.x = (v00.x * ax + v01.x * wx) * ay + (v10.x * ax + v11.x * wx) * wy;

@@ -21,6 +21,10 @@ plan, and no fallback.
     ``plain_render`` for CPU tensors, and raises on anything else. It
     goes through ``_FusedRender``, an autograd ``Function`` whose backward
     is ``kernels/render_fused_bwd.py``.
+  * ``launch_shape`` / ``check_launch`` — the kernel's launch (a block
+    renders one tile for a chunk of up to ``VIEW_CHUNK`` views of a shared
+    scene, one pass over the scene per chunk) and the limits the wrapper
+    raises on, as pure functions.
 """
 
 from __future__ import annotations
@@ -50,13 +54,56 @@ _SIGNATURES = {"mpi_render_fused": (
 # arithmetic, only to round as the plain version does; the bound does not
 # count them.
 FLOPS_PER_SAMPLE = 15 + 6 + 36 + 10
-# Homographies are staged in shared memory, P x 9 floats per block; past
-# 48 KiB the launch needs an opt-in attribute this kernel does not set.
-MAX_PLANES = (48 * 1024) // (9 * 4)
+# A block renders one 32 x 8 output tile for a chunk of up to VIEW_CHUNK
+# views of one shared scene (one view when each view has its own scene).
+TILE = (32, 8)
+VIEW_CHUNK = 4
+# The chunk's homographies are staged in shared memory, views x P x 9
+# floats per block; past 48 KiB the launch needs an opt-in attribute this
+# kernel does not set. MAX_PLANES is the limit at a full chunk.
+SMEM_LIMIT = 48 * 1024
+MAX_PLANES = SMEM_LIMIT // (VIEW_CHUNK * 9 * 4)
 MAX_VIEWS = 65535  # gridDim.z
+# Offsets inside one plane are 32-bit.
+MAX_PLANE_PIXELS = 2**31 - 1
 # The serving engine's completion workers launch concurrently; the launch
 # and plain-version counters are read-modify-write.
 _count_lock = threading.Lock()
+
+
+def launch_shape(views: int, num_planes: int, height: int, width: int,
+                 shared: bool) -> dict:
+  """The kernel's launch for ``views`` views of ``[P, H, W]`` planes, as
+  ``csrc/render_fused.cu``'s entry point computes it: ``view_chunk`` views
+  per block (``VIEW_CHUNK`` of a shared scene, one for one scene per view),
+  ``grid`` (x tiles, y tiles, view chunks), ``block`` and the dynamic
+  ``smem_bytes`` of the chunk's homographies."""
+  chunk = min(views, VIEW_CHUNK) if shared else 1
+  return {"view_chunk": chunk,
+          "grid": (-(-width // TILE[0]), -(-height // TILE[1]),
+                   -(-views // chunk)),
+          "block": TILE,
+          "smem_bytes": chunk * num_planes * 9 * 4}
+
+
+def check_launch(name: str, views: int, num_planes: int, height: int,
+                 width: int, shared: bool) -> dict:
+  """``launch_shape``, or a ``ValueError`` naming what the kernel cannot
+  take: too many planes for shared memory, too many view chunks for the
+  grid, or a plane of 2^31 pixels or more."""
+  shape = launch_shape(views, num_planes, height, width, shared)
+  if shape["smem_bytes"] > SMEM_LIMIT:
+    raise ValueError(
+        f"{name}: {num_planes} planes x {shape['view_chunk']} views exceed "
+        f"the kernel's shared-memory budget ({MAX_PLANES} planes at a full "
+        f"chunk of {VIEW_CHUNK} views)")
+  if shape["grid"][2] > MAX_VIEWS:
+    raise ValueError(f"{name}: {views} views exceed the kernel's grid "
+                     f"({MAX_VIEWS} chunks of {shape['view_chunk']})")
+  if height * width > MAX_PLANE_PIXELS:
+    raise ValueError(f"{name}: {height} x {width} pixels per plane exceed "
+                     f"the kernel's 32-bit plane offsets")
+  return shape
 
 
 def pixel_homographies(
@@ -232,12 +279,9 @@ def _launch(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
     return plain_render(planes, homs)
   dev = _cuda_ready("render_mpi_fused", {"planes": planes, "homs": homs},
                     "planes")
-  if num_planes > MAX_PLANES:
-    raise ValueError(f"{num_planes} planes exceed the kernel's "
-                     f"{MAX_PLANES}-plane shared-memory budget")
-  if views > MAX_VIEWS:
-    raise ValueError(f"{views} views exceed the kernel's {MAX_VIEWS}")
   height, width = planes.shape[-3], planes.shape[-2]
+  check_launch("render_mpi_fused", views, num_planes, height, width,
+               planes.dim() == 4)
   out = torch.empty((views, height, width, 3), dtype=torch.float32,
                     device=dev)
   view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4

@@ -17,6 +17,10 @@ for every pose, with no plan and no fallback:
   * kernel B, ``adjoint_warp`` — the warp transpose in gather form: each
     source pixel sums, in a fixed order, the target pixels whose forward
     sample point reaches it (no atomics: the gradient is deterministic).
+    One block takes a source tile, stages the tile's preimage once per
+    view and finds each pixel's contributors in it; ``tile_boxes``,
+    ``tile_chunks`` and ``tile_scan`` are the plain mirror of that logic,
+    which the CPU tests hold by brute force.
 
 Beside each kernel is its plain version (``plain_rewarp_composite_vjp``,
 ``plain_adjoint_warp``): explicit torch in the kernel's order of
@@ -64,11 +68,48 @@ FLOPS_A = render_fused.FLOPS_PER_SAMPLE + 15
 # kernel evaluates): the homography (15), floor and fractions (6), the four
 # tap weights (4) and 4 taps x 4 channels x (mul + add) (32).
 FLOPS_B = 15 + 6 + 4 + 32
-MAX_PLANES = render_fused.MAX_PLANES
-# Kernel B stages every view's forward map (9 floats) and inverse (9
-# doubles) of its plane in shared memory; past 48 KiB the launch needs an
-# opt-in attribute it does not set.
-MAX_SHARED_VIEWS = (48 * 1024) // (9 * (4 + 8))
+# Kernel A stages one view's P x 9 homographies in shared memory.
+MAX_PLANES = render_fused.SMEM_LIMIT // (9 * 4)
+# Kernel B: one block per TILE_B source tile of one plane, one thread per
+# column and ROWS_PER_THREAD rows. Its preimage is staged in chunks of up to
+# CHUNK targets and MAX_SEGS row segments, rows wider than SEG_MAX cut into
+# equal segments; NO_TAP marks a target out of reach (a reachable tap
+# origin is >= -1).
+TILE_B = (64, 16)
+ROWS_PER_THREAD = 4
+CHUNK = 1536
+MAX_SEGS = 32
+SEG_MAX = 240
+NO_TAP = -2
+
+
+def adjoint_launch_shape(views: int, num_planes: int, height: int,
+                         width: int, shared: bool) -> dict:
+  """Kernel B's launch, as ``csrc/render_fused_bwd.cu`` computes it:
+  ``grid`` (x tiles, y tiles, scenes x planes), ``block`` and the dynamic
+  ``smem_bytes`` of one staged chunk (dwarped float4 and the sample point
+  float2 per target; per segment its y0 range and a byte span per tile
+  column)."""
+  scenes = 1 if shared else views
+  return {"grid": (-(-width // TILE_B[0]), -(-height // TILE_B[1]),
+                   scenes * num_planes),
+          "block": (TILE_B[0], TILE_B[1] // ROWS_PER_THREAD),
+          "smem_bytes": CHUNK * (16 + 8) + MAX_SEGS * (8 + 2 * TILE_B[0])}
+
+
+def check_adjoint_launch(views: int, num_planes: int, height: int,
+                         width: int, shared: bool) -> dict:
+  """``adjoint_launch_shape``, or a ``ValueError`` naming what kernel B
+  cannot take: more scenes x planes than the grid's z, or a plane of 2^31
+  pixels or more (32-bit offsets)."""
+  shape = adjoint_launch_shape(views, num_planes, height, width, shared)
+  if shape["grid"][2] > render_fused.MAX_VIEWS:
+    raise ValueError(f"{shape['grid'][2]} scenes x planes exceed kernel B's "
+                     f"grid ({render_fused.MAX_VIEWS})")
+  if height * width > render_fused.MAX_PLANE_PIXELS:
+    raise ValueError(f"{height} x {width} pixels per plane exceed kernel "
+                     "B's 32-bit plane offsets")
+  return shape
 
 
 def _library():
@@ -161,6 +202,9 @@ def rewarp_composite_vjp(planes: torch.Tensor, homs: torch.Tensor,
   if views > render_fused.MAX_VIEWS:
     raise ValueError(f"{views} views exceed the kernel's "
                      f"{render_fused.MAX_VIEWS}")
+  if h * w > render_fused.MAX_PLANE_PIXELS:
+    raise ValueError(f"{h} x {w} pixels per plane exceed the kernel's "
+                     "32-bit plane offsets")
   out = torch.empty((views, num_planes, h, w, 4), dtype=torch.float32,
                     device=dev)
   view_stride = 0 if planes.dim() == 4 else num_planes * h * w * 4
@@ -198,28 +242,23 @@ def _inverse3x3(hom: torch.Tensor) -> torch.Tensor:
       c02, m1 * m6 - m0 * m7, m0 * m4 - m1 * m3]) / det
 
 
-def candidate_boxes(hom: torch.Tensor, height: int, width: int):
-  """Per source pixel, the target pixels that can sample it.
+def preimage_boxes(hom: torch.Tensor, cx_lo, cx_hi, cy_lo, cy_hi,
+                   height: int, width: int):
+  """Target pixels that can sample the source boxes whose corners are
+  ``(cx_lo | cx_hi, cy_lo | cy_hi)`` (float64 tensors, one entry per box).
 
-  The box ``(x +- 1, y +- 1)`` around every source pixel, its corners
-  mapped through the inverse of ``hom [3, 3]`` in float64, the bounding
-  box widened to floor/ceil and clamped to the image; the whole image where
-  the inverse denominator is not one-signed over the box (the plane
-  crosses the camera's plane there) or anything is non-finite; empty
-  (``lo > hi``) where the box maps outside the image. Returns
-  ``(i_lo, i_hi, j_lo, j_hi, whole)``, each ``[H * W]`` over source pixels
-  in row-major order — the kernel's ``candidate_box``.
+  The corners mapped through the inverse of ``hom [3, 3]`` in float64, the
+  bounding box widened to floor/ceil and clamped to the image; the whole
+  image where the inverse denominator is not one-signed over the corners
+  (the plane crosses the camera's plane there) or anything is non-finite;
+  empty (``lo > hi``) where the box maps outside the image. Returns
+  ``(i_lo, i_hi, j_lo, j_hi, whole)`` per box — the kernel's
+  ``preimage_box``.
   """
   hi = _inverse3x3(hom)
-  dev = hom.device
-  ys, xs = torch.meshgrid(
-      torch.arange(height, dtype=torch.float64, device=dev),
-      torch.arange(width, dtype=torch.float64, device=dev), indexing="ij")
-  xs, ys = xs.reshape(-1), ys.reshape(-1)
   jc, ic, pos, neg = [], [], True, True
-  for dx in (-1.0, 1.0):
-    for dy in (-1.0, 1.0):
-      cx, cy = xs + dx, ys + dy
+  for cy in (cy_lo, cy_hi):
+    for cx in (cx_lo, cx_hi):
       e = hi[6] * cx + hi[7] * cy + hi[8]
       tol = 1e-7 * ((hi[6] * cx).abs() + (hi[7] * cy).abs() + hi[8].abs())
       pos = pos & (e > tol)
@@ -245,7 +284,121 @@ def candidate_boxes(hom: torch.Tensor, height: int, width: int):
   j_hi = bound(jmax, torch.ceil, width, width - 1.0)
   i_lo = torch.where(empty, 1, i_lo)
   i_hi = torch.where(empty, 0, i_hi)
+  j_lo = torch.where(empty, 1, j_lo)
+  j_hi = torch.where(empty, 0, j_hi)
   return i_lo, i_hi, j_lo, j_hi, whole
+
+
+def candidate_boxes(hom: torch.Tensor, height: int, width: int):
+  """Per source pixel, the target pixels that can sample it: the
+  ``preimage_boxes`` of the box ``(x +- 1, y +- 1)``, each ``[H * W]`` over
+  source pixels in row-major order. ``plain_adjoint_warp`` scans them."""
+  ys, xs = torch.meshgrid(
+      torch.arange(height, dtype=torch.float64, device=hom.device),
+      torch.arange(width, dtype=torch.float64, device=hom.device),
+      indexing="ij")
+  xs, ys = xs.reshape(-1), ys.reshape(-1)
+  return preimage_boxes(hom, xs - 1.0, xs + 1.0, ys - 1.0, ys + 1.0,
+                        height, width)
+
+
+def tile_boxes(hom: torch.Tensor, height: int, width: int):
+  """Kernel B's per-tile preimages: the ``preimage_boxes`` of each
+  ``TILE_B`` source tile's corners +- 1 (clipped to the image), each
+  ``[tiles_y * tiles_x]`` in row-major tile order."""
+  tx, ty = TILE_B
+  ys, xs = torch.meshgrid(
+      torch.arange(0, height, ty, dtype=torch.float64, device=hom.device),
+      torch.arange(0, width, tx, dtype=torch.float64, device=hom.device),
+      indexing="ij")
+  xs, ys = xs.reshape(-1), ys.reshape(-1)
+  return preimage_boxes(hom, xs - 1.0, (xs + tx - 1).clamp(max=width - 1) + 1,
+                        ys - 1.0, (ys + ty - 1).clamp(max=height - 1) + 1,
+                        height, width)
+
+
+def tile_chunks(box, chunk: int = CHUNK, max_segs: int = MAX_SEGS,
+                seg_max: int = SEG_MAX) -> list[list[tuple[int, int, int]]]:
+  """How kernel B stages one preimage ``box = (i_lo, i_hi, j_lo, j_hi)``:
+  a list of chunks, each a list of row segments ``(i, j_begin, seg_w)`` in
+  ascending ``(i, j)``. A row wider than ``seg_max`` is cut into equal
+  segments; a chunk holds at most ``max_segs`` segments and ``chunk``
+  staged targets (a segment's columns past ``j_hi`` are staged as out of
+  reach)."""
+  i_lo, i_hi, j_lo, j_hi = (int(b) for b in box)
+  box_w, rows = j_hi - j_lo + 1, i_hi - i_lo + 1
+  if box_w <= 0 or rows <= 0:
+    return []
+  pieces = -(-box_w // seg_max)
+  seg_w = -(-box_w // pieces)
+  per_chunk = min(max_segs, chunk // seg_w)
+  segs = [(i_lo + g // pieces, j_lo + (g % pieces) * seg_w, seg_w)
+          for g in range(rows * pieces)]
+  return [segs[k:k + per_chunk] for k in range(0, len(segs), per_chunk)]
+
+
+def forward_taps(hom: torch.Tensor, height: int, width: int):
+  """Every target pixel's forward sample under ``hom``, ``[H * W]`` each:
+  the sampler's pixel coords ``px, py`` (``sampling.bilinear_sample``), the
+  forward kernel's reach guard, and the tap origin ``x0f, y0f`` (float,
+  ``NO_TAP`` out of reach, as kernel B stages it)."""
+  grid, scale = render_fused.pixel_grid(height, width, hom.device)
+  coords = render_fused.sample_coords(hom, grid, scale)
+  px = (coords[..., 0] * width - 0.5).reshape(-1)
+  py = (coords[..., 1] * height - 0.5).reshape(-1)
+  reach = (px >= -1.0) & (px < width) & (py >= -1.0) & (py < height)
+  x0f = torch.where(reach, torch.floor(px), float(NO_TAP))
+  y0f = torch.where(reach, torch.floor(py), float(NO_TAP))
+  return px, py, reach, x0f, y0f
+
+
+def tile_scan(hom: torch.Tensor, height: int, width: int,
+              chunk: int = CHUNK, max_segs: int = MAX_SEGS,
+              seg_max: int = SEG_MAX) -> torch.Tensor:
+  """The plain mirror of kernel B's tile, chunk and span logic: a
+  ``[H * W, H * W]`` bool, source pixel by target pixel, of the targets each
+  source pixel's thread scans (in ascending ``(i, j)``, the order of its
+  sum). Per segment: the running max of the staged ``x0`` from the left,
+  the running min from the right (out-of-reach targets excluded), the
+  segment's ``y0`` range; a thread (column x, ``ROWS_PER_THREAD`` rows from
+  y_a) skips segments whose range misses ``[y_a - 1, y_a +
+  ROWS_PER_THREAD - 1]`` and scans ``[first pmax >= x - 1, first smin >
+  x)`` for all its rows. Small images only: the result is dense."""
+  *_, x0, y0 = (t.to(torch.int64) for t in forward_taps(hom, height, width))
+  scanned = torch.zeros((height * width, height * width), dtype=torch.bool)
+  tx, ty = TILE_B
+  tiles_x = -(-width // tx)
+  boxes = torch.stack(tile_boxes(hom, height, width)[:4], 1).tolist()
+  for t, box in enumerate(boxes):
+    ys0, xs0 = (t // tiles_x) * ty, (t % tiles_x) * tx
+    ys = torch.arange(ys0, min(ys0 + ty, height))
+    xs = torch.arange(xs0, min(xs0 + tx, width))
+    for segs in tile_chunks(box, chunk, max_segs, seg_max):
+      for i, j_begin, seg_w in segs:
+        js = torch.arange(j_begin, j_begin + seg_w)
+        inside = js <= box[3]
+        tgt = i * width + js.clamp(max=width - 1)
+        ok = inside & (x0[tgt] != NO_TAP)
+        if not bool(ok.any()):
+          continue
+        sx = torch.where(ok, x0[tgt], -2**62)
+        pmax = torch.cummax(sx, 0).values
+        sx = torch.where(ok, x0[tgt], 2**62)
+        smin = torch.cummin(sx.flip(0), 0).values.flip(0)
+        yr = y0[tgt][ok]
+        # A thread's rows y_a .. y_a + ROWS_PER_THREAD - 1 share its scan.
+        firsts = ys[::ROWS_PER_THREAD]
+        groups = firsts[(yr.max() >= firsts - 1)
+                        & (yr.min() <= firsts + ROWS_PER_THREAD - 1)]
+        rows_hit = [y for y_a in groups.tolist()
+                    for y in range(y_a, min(y_a + ROWS_PER_THREAD, height))]
+        lo = torch.searchsorted(pmax, xs - 1, right=False)
+        hi = torch.searchsorted(smin, xs, right=True)
+        for x, a, b in zip(xs.tolist(), lo.tolist(), hi.tolist()):
+          cols = tgt[a:b][inside[a:b]]
+          for y in rows_hit:
+            scanned[y * width + x, cols] = True
+  return scanned
 
 
 def _check_b(dwarped, homs):
@@ -308,20 +461,12 @@ def plain_adjoint_warp(dwarped: torch.Tensor, homs: torch.Tensor,
   dev = dwarped.device
   out = torch.zeros((1 if shared else views, num_planes, h * w, 4),
                     dtype=torch.float32, device=dev)
-  grid, scale = render_fused.pixel_grid(h, w, dev)
   ys, xs = torch.meshgrid(torch.arange(h, device=dev),
                           torch.arange(w, device=dev), indexing="ij")
   xs, ys = xs.reshape(-1), ys.reshape(-1)
   for p in range(num_planes):
     for v in range(views):
-      coords = render_fused.sample_coords(homs[v, p], grid, scale)
-      # The sampler's pixel coords (sampling.bilinear_sample) and the
-      # forward kernel's reach guard.
-      px = (coords[..., 0] * w - 0.5).reshape(-1)
-      py = (coords[..., 1] * h - 0.5).reshape(-1)
-      reach = (px >= -1.0) & (px < w) & (py >= -1.0) & (py < h)
-      x0f = torch.where(reach, torch.floor(px), -2.0)
-      y0f = torch.where(reach, torch.floor(py), -2.0)
+      px, py, reach, x0f, y0f = forward_taps(homs[v, p], h, w)
       tmap = (px, py, x0f, y0f, x0f.to(torch.int64), y0f.to(torch.int64),
               reach)
       *boxes, _ = candidate_boxes(homs[v, p], h, w)
@@ -358,15 +503,9 @@ def adjoint_warp(dwarped: torch.Tensor, homs: torch.Tensor,
     return plain_adjoint_warp(dwarped, homs, shared)
   dev = _cuda_ready("adjoint_warp", {"dwarped": dwarped, "homs": homs},
                     "dwarped")
-  if shared and views > MAX_SHARED_VIEWS:
-    raise ValueError(f"{views} views of one scene exceed the kernel's "
-                     f"{MAX_SHARED_VIEWS}")
-  scenes = 1 if shared else views
-  if scenes * num_planes > render_fused.MAX_VIEWS:
-    raise ValueError(f"{scenes} scenes x {num_planes} planes exceed the "
-                     f"kernel's grid ({render_fused.MAX_VIEWS})")
-  out = torch.empty((scenes, num_planes, h, w, 4), dtype=torch.float32,
-                    device=dev)
+  check_adjoint_launch(views, num_planes, h, w, shared)
+  out = torch.empty((1 if shared else views, num_planes, h, w, 4),
+                    dtype=torch.float32, device=dev)
   err = _library().mpi_adjoint_warp(
       dwarped.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
       h, w, int(shared), dev.index, torch.cuda.current_stream(dev).cuda_stream)

@@ -254,6 +254,95 @@ def test_candidate_boxes_hold_every_contributor(rng):
               assert i_lo[s] <= ti <= i_hi[s] and j_lo[s] <= tj <= j_hi[s]
 
 
+def _contributors(hom, h, w):
+  """Brute force: ``[H * W, H * W]`` bool, source pixel by target pixel,
+  of the targets whose forward sample has the source among its taps."""
+  *_, x0, y0 = (t.to(torch.int64) for t in rb.forward_taps(hom, h, w))
+  hits = torch.zeros((h * w, h * w), dtype=torch.bool)
+  for t in torch.nonzero(x0 != rb.NO_TAP).reshape(-1).tolist():
+    for y in (int(y0[t]), int(y0[t]) + 1):
+      for x in (int(x0[t]), int(x0[t]) + 1):
+        if 0 <= x < w and 0 <= y < h:
+          hits[y * w + x, t] = True
+  return hits
+
+
+# Chunkings of the tile's preimage: the kernel's, and one small enough that
+# every preimage splits across chunks and every row across segments.
+CHUNKINGS = {"kernel": {}, "split": dict(chunk=48, max_segs=4, seg_max=16)}
+
+
+@pytest.mark.parametrize("chunking", sorted(CHUNKINGS))
+@pytest.mark.parametrize("pose_kw", [TRANSLATION, ROTATION, PAST_BANDED,
+                                     CROSSING, ZOOM],
+                         ids=["translation", "rotation", "past_banded",
+                              "crossing", "zoom"])
+def test_tile_scan_holds_every_contributor(pose_kw, chunking):
+  """Kernel B's tile preimage, chunks, segments and spans (their plain
+  mirror, ``tile_scan``) put every target whose forward taps reach a
+  source pixel inside what that pixel's thread scans: 40 x 72 source
+  pixels are 2 x 3 tiles of 64 x 16, ragged at the right and bottom."""
+  p, h, w = 2, 40, 72
+  kw = CHUNKINGS[chunking]
+  for hom in _t(_homs(pose_kw, p, h, w)):
+    hits = _contributors(hom, h, w)
+    scanned = rb.tile_scan(hom, h, w, **kw)
+    assert int(hits.sum()) > 0
+    assert not bool((hits & ~scanned).any())
+    if chunking == "split":
+      boxes = torch.stack(rb.tile_boxes(hom, h, w)[:4], 1).tolist()
+      assert max(len(rb.tile_chunks(b, **kw)) for b in boxes) > 1
+
+
+def test_tile_preimages_contain_pixel_boxes():
+  """Each tile's preimage holds the candidate box of every pixel in it;
+  a plane crossing the camera's plane sends some tile to the whole image."""
+  h, w = 40, 72
+  for pose_kw in (TRANSLATION, ROTATION, CROSSING, ZOOM):
+    for hom in _t(_homs(pose_kw, 2, h, w)):
+      pix = rb.candidate_boxes(hom, h, w)
+      tiles = rb.tile_boxes(hom, h, w)
+      tiles_x = -(-w // rb.TILE_B[0])
+      for s in range(h * w):
+        y, x = divmod(s, w)
+        t = (y // rb.TILE_B[1]) * tiles_x + x // rb.TILE_B[0]
+        if pix[0][s] > pix[1][s]:
+          continue  # an empty box needs nothing
+        assert tiles[0][t] <= pix[0][s] and pix[1][s] <= tiles[1][t]
+        assert tiles[2][t] <= pix[2][s] and pix[3][s] <= tiles[3][t]
+      if pose_kw is CROSSING:
+        assert bool(tiles[4].any())
+
+
+def test_tile_chunks_split_rows_in_order():
+  """Segments come in ascending (i, j), cover the box's columns, and each
+  chunk holds at most ``chunk`` targets and ``max_segs`` segments."""
+  box = (3, 9, 5, 44)   # 7 rows x 40 columns
+  chunks = rb.tile_chunks(box, chunk=48, max_segs=4, seg_max=16)
+  segs = [s for c in chunks for s in c]
+  assert segs == sorted(segs)
+  assert all(len(c) <= 4 and sum(s[2] for s in c) <= 48 for c in chunks)
+  for i in range(3, 10):
+    cols = sorted(j for r, j0, n in segs if r == i for j in range(j0, j0 + n))
+    assert cols[:40] == list(range(5, 45)) and len(cols) == 42  # 3 x 14
+  assert rb.tile_chunks((1, 0, 1, 0)) == []
+  # The kernel's chunking: a 1080p row is 8 segments of 240, six a chunk.
+  wide = rb.tile_chunks((0, 2, 0, 1919))
+  assert [len(c) for c in wide] == [6, 6, 6, 6]
+  assert {s[2] for c in wide for s in c} == {240}
+  # A near-identity 64 x 16 tile's preimage is one chunk.
+  assert len(rb.tile_chunks((99, 119, 126, 193))) == 1
+
+
+def test_adjoint_launch_shape():
+  shape = rb.adjoint_launch_shape(8, 32, 1080, 1920, shared=True)
+  assert shape["grid"] == (30, 68, 32) and shape["block"] == (64, 4)
+  # Five blocks to an SM's 227 KiB, each with its 1 KiB reserved.
+  assert shape["smem_bytes"] <= (227 * 1024) // 5 - 1024
+  assert rb.adjoint_launch_shape(3, 10, 224, 224, False)["grid"] == (4, 14,
+                                                                     30)
+
+
 def test_render_mpi_fused_pallas_carries_its_gradient(rng):
   """``render_mpi(method="fused_pallas")`` goes through the autograd
   Function, and its gradient equals the plain per-plane loop's autograd
@@ -308,3 +397,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
   with pytest.raises(ValueError, match="CUDA device"):
     rb.adjoint_warp(torch.zeros(1, 3, 8, 8, 4, device="meta"),
                     homs.to("meta"), shared=True)
+  # Kernel B's limits: the grid's z holds scenes x planes; any number of
+  # views of one scene (one view's maps are staged at a time).
+  rb.check_adjoint_launch(100000, 32, 8, 8, shared=True)
+  rb.check_adjoint_launch(2047, 32, 8, 8, shared=False)
+  with pytest.raises(ValueError, match="grid"):
+    rb.check_adjoint_launch(2048, 32, 8, 8, shared=False)
+  with pytest.raises(ValueError, match="32-bit"):
+    rb.check_adjoint_launch(1, 1, 46341, 46341, shared=True)

@@ -213,6 +213,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     rf.render_mpi_fused(planes.to("meta"), homs.to("meta"))
 
 
+def test_launch_shape():
+  """The kernel's view chunks, grid and shared memory, and the limits the
+  wrapper raises on."""
+  fwd = rf.launch_shape(8, 32, 1080, 1920, shared=True)
+  assert fwd == {"view_chunk": 4, "grid": (60, 135, 2), "block": (32, 8),
+                 "smem_bytes": 4 * 32 * 36}
+  assert rf.launch_shape(9, 32, 1080, 1920, True)["grid"][2] == 3
+  assert rf.launch_shape(16, 32, 1080, 1920, True)["grid"][2] == 4
+  assert rf.launch_shape(3, 32, 1080, 1920, True)["view_chunk"] == 3
+  assert rf.launch_shape(3, 10, 224, 224, False)["view_chunk"] == 1
+  assert rf.launch_shape(1, 32, 8, 8, True)["smem_bytes"] == 32 * 36
+  rf.check_launch("t", 8, rf.MAX_PLANES, 8, 8, True)
+  with pytest.raises(ValueError, match="shared-memory budget"):
+    rf.check_launch("t", 8, rf.MAX_PLANES + 1, 8, 8, True)
+  rf.check_launch("t", 1, rf.MAX_PLANES + 1, 8, 8, True)  # a chunk of one
+  with pytest.raises(ValueError, match="grid"):
+    rf.check_launch("t", rf.MAX_VIEWS + 1, 4, 8, 8, False)
+  with pytest.raises(ValueError, match="32-bit"):
+    rf.check_launch("t", 1, 4, 46341, 46341, True)
+
+
 def test_plain_version_runs_only_for_cpu_tensors(rng):
   calls = rf.plain_render.calls
   rf.render_mpi_fused(torch.zeros(2, 8, 8, 4), torch.zeros(1, 2, 3, 3))
