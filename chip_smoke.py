@@ -36,8 +36,14 @@ Phases:
      engine's own batch time (host clock) beside the kernel's.
   6. backward kernels vs plain versions at 1080p x 32 planes on the five
      pose classes, with a seeded gradient: kernel A (re-warp + composite
-     VJP) and kernel B (warp transpose) each within 1e-4 of its plain
-     version; two backward runs bit-identical; the gradient through
+     VJP) equal to its plain version (max_abs_err 0) and kernel B (warp
+     transpose) within 1e-4 of its; kernel A also at 1, 10 and 16 planes
+     (records in registers), 17, 32 and 33 (shared memory) and one count
+     past the cap (parked in dwarped), each for one scene under 2 views and
+     one scene per view at a small size, max_abs_err 0, the path read from
+     the built kernel; ``rewarp_launch_shape`` equal to the kernel's own
+     launch at every plane count; two backward runs bit-identical; the
+     gradient through
      ``render_mpi_fused``'s autograd Function equal to the kernels' and
      nonzero; one scene under 3 views (view stride 0) against the sum of
      three single-view backwards (540p); one scene per view at a small
@@ -55,10 +61,11 @@ Phases:
      plain backward (planes within 1e-4 of max |grad|, conv weights under
      ``cudnn.deterministic``), and times: the backward kernels at 1080p x
      32 (V = 1 under the identity and a 10 degree pan, V = 8) beside their
-     plain versions, the library call and the
-     bound; the train step and its split (the profiler's busy time of the
-     U-Net, render forward, kernels A and B, VGG loss, optimizer) and the
-     card's busy share over steps.
+     plain versions, the library call and the bound; kernel A also at
+     1080p x 10 planes (V = 1 and 8) and 480 x 480 x 33, each beside its
+     bound and with the path it took; the train step and its split (the
+     profiler's busy time of the U-Net, render forward, kernels A and B,
+     VGG loss, optimizer) and the card's busy share over steps.
   8. the compose kernel (``kernels/compose_over.py``) vs its plain version
      at 1080p x 32 planes, V = 1 and V = 8, f32 and bf16, with alphas of
      exactly 0 and 1 and a one-plane stack: f32 within 1e-4 (the design
@@ -348,13 +355,18 @@ def phase6_backward(torch, dev, planes, classes) -> dict:
           f"{err} > {TOL}")
     return err
 
+  def held_exact(name, got, want):
+    err = held(name, got, want)
+    check(err == 0.0, f"{name}: max_abs_err {err}, not 0")
+    return err
+
   crossing = {}
   for name, pose in classes.items():
     homs = homs_at(torch, dev, pose[None], PLANES, HEIGHT, WIDTH)
     g = torch.randn((1, HEIGHT, WIDTH, 3), generator=gen, device=dev)
     dwarped = rb.rewarp_composite_vjp(planes, homs, g)
-    err_a = held(f"A [{name}]", dwarped,
-                 rb.plain_rewarp_composite_vjp(planes, homs, g))
+    err_a = held_exact(f"A [{name}]", dwarped,
+                       rb.plain_rewarp_composite_vjp(planes, homs, g))
     dplanes = rb.adjoint_warp(dwarped, homs, shared=True)
     err_b = held(f"B [{name}]", dplanes,
                  rb.plain_adjoint_warp(dwarped, homs, shared=True))
@@ -412,8 +424,8 @@ def phase6_backward(torch, dev, planes, classes) -> dict:
                          else (sp, sh, sw, 4)), generator=gen, device=dev)
     g = torch.randn((views, sh, sw, 3), generator=gen, device=dev)
     dwarped = rb.rewarp_composite_vjp(scenes, homs, g)
-    err_a = held(f"A [{label}]", dwarped,
-                 rb.plain_rewarp_composite_vjp(scenes, homs, g))
+    err_a = held_exact(f"A [{label}]", dwarped,
+                       rb.plain_rewarp_composite_vjp(scenes, homs, g))
     err_b = held(f"B [{label}]",
                  rb.adjoint_warp(dwarped, homs, shared=views == 1),
                  rb.plain_adjoint_warp(dwarped, homs, shared=views == 1))
@@ -436,6 +448,40 @@ def phase6_backward(torch, dev, planes, classes) -> dict:
             "the dolly's preimages fit one chunk or one segment a row")
     errs["rewarp_composite_vjp"] = max(errs["rewarp_composite_vjp"], err_a)
     errs["adjoint_warp"] = max(errs["adjoint_warp"], err_b)
+
+  # Kernel A on each of its paths: records in registers, in shared memory,
+  # and past the cap parked in dwarped.
+  sh, sw = 72, 136
+  poses = np.stack([classes["pan_10deg"], classes["translation_dolly"]])
+  paths = {}
+  for sp in (1, 10, 16, 17, 32, 33, rb.SMEM_PLANES + 1):
+    homs = homs_at(torch, dev, poses, max(sp, 2), sh, sw)[:, :sp].contiguous()
+    g = torch.randn((2, sh, sw, 3), generator=gen, device=dev)
+    path = rb.kernel_rewarp_launch_shape(2, sp, sh, sw)["path"]
+    paths.setdefault(path, []).append(sp)
+    for shape in ((sp, sh, sw, 4), (2, sp, sh, sw, 4)):
+      scenes = torch.rand(shape, generator=gen, device=dev)
+      kind = "one scene" if len(shape) == 4 else "one scene per view"
+      err_a = held_exact(f"A [{sp} planes, {path} path, {kind}]",
+                         rb.rewarp_composite_vjp(scenes, homs, g),
+                         rb.plain_rewarp_composite_vjp(scenes, homs, g))
+      errs["rewarp_composite_vjp"] = max(errs["rewarp_composite_vjp"], err_a)
+  log(f"backward: kernel A equals its plain version (max_abs_err 0) at "
+      f"{sh}x{sw}, 2 views, one scene and one per view, on each path "
+      f"{json.dumps(paths)}")
+  check(set(paths) == {"registers", "shared", "global"},
+        f"kernel A's paths not all taken: {paths}")
+  # The Python mirror of kernel A's launch equals the built kernel's at
+  # every plane count it takes, on the main path's and edge shapes.
+  for views, sh, sw in ((1, 224, 224), (8, HEIGHT, WIDTH), (3, 1, 1),
+                        (5, 37, 1001)):
+    for sp in range(1, rb.MAX_PLANES + 1):
+      want = rb.kernel_rewarp_launch_shape(views, sp, sh, sw)
+      got = rb.rewarp_launch_shape(views, sp, sh, sw)
+      check(got == want, f"rewarp_launch_shape({views}, {sp}, {sh}, {sw}) "
+            f"= {got}, the kernel launches {want}")
+  log(f"backward: rewarp_launch_shape equals the kernel's launch at 1.."
+      f"{rb.MAX_PLANES} planes")
   return errs
 
 
@@ -672,7 +718,34 @@ def backward_times(torch, dev, planes) -> dict:
     for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
       row[f"bound_{key}_ms"], row[f"bound_{key}_by"] = bounds[name]
     row["bound_pair_ms"] = bounds["pair_ms"]
+    row["path_a"] = rb.kernel_rewarp_launch_shape(views, PLANES, HEIGHT,
+                                                  WIDTH)["path"]
     out[label] = row
+    torch.cuda.empty_cache()
+  # Kernel A on its other paths' shapes: the training plane count at 1080p
+  # (records in registers) and scaled_480's 480 x 480 x 33.
+  for label, (sp, sh, sw), poses in (
+      ("a_p10_v1", (10, HEIGHT, WIDTH), pan_pose(0.0, 0.0, 0.0)[None]),
+      ("a_p10_v8", (10, HEIGHT, WIDTH), np.stack([
+          pan_pose(1.0 * i, 0.01 * i, -0.01 * i) for i in range(8)])),
+      ("a_480_p33_v1", (33, 480, 480), pan_pose(0.0, 0.0, 0.0)[None])):
+    views = len(poses)
+    scene = torch.rand((sp, sh, sw, 4), generator=gen, device=dev)
+    homs = homs_at(torch, dev, poses, sp, sh, sw)
+    g = torch.randn((views, sh, sw, 3), generator=gen, device=dev)
+    row = {"a_ms": cuda_ms(torch, lambda: rb.rewarp_composite_vjp(
+               scene, homs, g), 10, warm=2),
+           "plain_a_ms": cuda_ms(
+               torch, lambda: rb.plain_rewarp_composite_vjp(scene, homs, g),
+               1, warm=0),
+           "path_a": rb.kernel_rewarp_launch_shape(views, sp, sh,
+                                                   sw)["path"]}
+    row["bound_a_ms"], row["bound_a_by"] = bwd_bounds(
+        views, sp, sh, sw)["rewarp_composite_vjp"]
+    log(f"backward times [{label}]: A {row['a_ms']:.3f} ms ({row['path_a']}"
+        f" path), bound {row['bound_a_ms']:.3f} ms")
+    out[label] = row
+    del scene, g
     torch.cuda.empty_cache()
   return out
 
@@ -1293,6 +1366,12 @@ def main() -> int:
                  "library_v1_pan10_ms":
                      v1p["library_ms"] if key == "b" else None,
                  "library_v8_ms": v8["library_ms"] if key == "b" else None})
+  a_row = rows[1]
+  a_row["path"] = v1["path_a"]
+  for label in ("a_p10_v1", "a_p10_v8", "a_480_p33_v1"):
+    a_row[f"{label[2:]}_ms"] = bwd_times[label]["a_ms"]
+    a_row[f"{label[2:]}_bound_ms"] = bwd_times[label]["bound_a_ms"]
+    a_row[f"{label[2:]}_path"] = bwd_times[label]["path_a"]
   c8 = comp["f32_v8"]
   rows.append({"name": "over_composite", "launches": tiled["launches"],
                "max_abs_err": comp["max_abs_err"],

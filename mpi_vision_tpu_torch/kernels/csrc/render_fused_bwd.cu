@@ -23,10 +23,35 @@
 //   g       = g * (1 - a_p)
 //   plane 0: d rgb_0 = g, d a_0 = 0.
 // below_p comes from the forward pass over the planes, never from dividing
-// by 1 - a (alphas reach 1). The forward pass parks (rgb_p - below_p, a_p)
-// in the thread's own slot of the output, dwarped[v, p, y, x], and the
-// reverse pass reads it back and overwrites it with the gradient: no
-// scratch allocation and no warped stack beyond the output itself.
+// by 1 - a (alphas reach 1). The forward pass keeps a record (rgb_p -
+// below_p, a_p) of each plane p >= 1 for the reverse pass. The plane count
+// picks where the records live, one path each (rewarp_launch below makes
+// the choice and mpi_rewarp_launch_shape reports it; render_fused_bwd.py's
+// rewarp_launch_shape mirrors it, held to the report on the card; no path
+// falls back to another):
+//   registers, P <= kRegPlanes (16): one thread per pixel, a kernel per
+//     bucket of 4 planes with both loops unrolled to the bucket, so each
+//     record is a named register (0 bytes of stack; a runtime index would
+//     put the array in local memory, which lives in HBM); the taps of the
+//     next kAhead planes come into shared memory by cp.async while one
+//     plane is composited, so they cost no registers (sample_plane's two
+//     halves, tap_point and blend_taps, run either side of the copy);
+//   shared, P <= kSmemPlanes (64): a block of 256 threads stages a 32 x 2
+//     tile's samples in shared memory, [plane][pixel] float4, all threads
+//     sampling; one thread per pixel then overwrites its samples with its
+//     records and those with their gradients, and all threads store them.
+//     1 KiB a plane and the maps a block (33.9 KB at 32 planes, six blocks
+//     an SM); past 48 KB the launch opts in, and its error is returned;
+//   global, past the cap: the kernel's first design, which parks each
+//     record in the thread's own slot of dwarped and overwrites it in the
+//     reverse pass.
+// The first two write nothing to global memory but dwarped, streamed past
+// L2 (st.global.cs), and walk (view, tile) items with the views of a tile
+// adjacent, so that with one shared scene the views after the first find
+// its taps in L2. One thread per pixel cannot hold 32 planes' records and
+// keep enough loads in flight (it measured no faster than the global path
+// at 1080p x 32): the shared path gets its loads in flight from all the
+// block's threads instead.
 //
 // Kernel B is the warp transpose in gather form:
 //   d plane(x, y) = sum_v sum_{(i, j)} dwarped[v, p, i, j]
@@ -87,9 +112,12 @@
 // ~4.25 GB, ~1.27 ms. A's arithmetic is the forward's 67 operations per
 // pixel and plane plus 15 for the VJP, B's ~57 per target sample it
 // transposes: each is far under its byte time, so both are bandwidth bound.
-// A spends bytes beyond the bound on its parked records (written and read
-// back once); B on the preimage's halo (~1.4 targets staged per source
-// pixel near the identity).
+// A's registers and shared paths move only the bound's bytes (at V views
+// of one scene, the scene once if L2 serves the other views' taps); its
+// global path also writes and reads back its parked records (~1 GB more
+// at 32 planes). B spends bytes on the preimage's halo (~1.4 targets
+// staged per source pixel near the identity). PERF.md has the measured
+// times beside the bounds.
 
 #include <cuda_runtime.h>
 
@@ -102,15 +130,19 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// Kernel A's global path (more than kSmemPlanes planes): one thread per
+// target pixel of a 32 x 8 tile, one view per blockIdx.z, each record
+// parked in the thread's own slot of dwarped.
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-rewarp_composite_vjp_kernel(const float4* __restrict__ planes,
-                            const float* __restrict__ homs,
-                            const float* __restrict__ g,
-                            float4* __restrict__ dwarped, int num_planes,
-                            int height, int width, long long view_stride4) {
+rewarp_composite_vjp_kernel_global(const float4* __restrict__ planes,
+                                   const float* __restrict__ homs,
+                                   const float* __restrict__ g,
+                                   float4* __restrict__ dwarped,
+                                   int num_planes, int height, int width,
+                                   long long view_stride4) {
   extern __shared__ float sh_homs[];  // [num_planes * 9]
   const int view = blockIdx.z;
   const float* view_homs = homs + static_cast<long long>(view) * num_planes * 9;
@@ -168,6 +200,292 @@ rewarp_composite_vjp_kernel(const float4* __restrict__ planes,
     g2 = g2 * keep;
   }
   out[0] = make_float4(g0, g1, g2, 0.f);
+}
+
+// Kernel A's on-chip paths take (view, tile) items of 32 x 2 target pixels
+// from a 1-D grid, the views of a tile adjacent: with one shared scene
+// (view_stride4 == 0) the views after the first find its taps in L2.
+constexpr int kTileAX = 32;
+constexpr int kTileAY = 2;
+constexpr int kTilePixels = kTileAX * kTileAY;
+constexpr int kRegPlanes = 16;  // the registers path, in buckets of 4
+constexpr int kRegBucket = 4;
+constexpr int kSmemPlanes = 64;  // the shared path, from kRegPlanes + 1
+constexpr int kSharedThreads = 256;
+// Six blocks an SM: at most 40 registers a thread.
+constexpr int kSharedBlocks = 6;
+
+struct Item {
+  int view, x_lo, y_lo;
+};
+
+// Item `item`'s view and tile; stages the view's P x 9 maps in sh_homs,
+// behind a barrier on each side (the last item's readers, this item's).
+__device__ __forceinline__ Item open_item(long long item, int views,
+                                          int tiles_x, const float* homs,
+                                          int num_planes, float* sh_homs,
+                                          int threads) {
+  Item it;
+  it.view = static_cast<int>(item % views);
+  const long long tile = item / views;
+  it.x_lo = static_cast<int>(tile % tiles_x) * kTileAX;
+  it.y_lo = static_cast<int>(tile / tiles_x) * kTileAY;
+  __syncthreads();
+  const float* view_homs =
+      homs + static_cast<long long>(it.view) * num_planes * 9;
+  for (int i = threadIdx.x; i < num_planes * 9; i += threads) {
+    sh_homs[i] = view_homs[i];
+  }
+  __syncthreads();
+  return it;
+}
+
+// -- The registers path: one thread per target pixel. ------------------
+
+// Planes whose taps are in flight while one plane is composited.
+constexpr int kAhead = 4;
+
+// 16 bytes from global to shared memory without a register (cp.async,
+// cached in L1: neighbouring pixels share taps); `valid` false writes
+// zeros and reads nothing. The "memory" clobbers keep the compiler from
+// moving shared-memory reads of a slot past the copy that refills it.
+__device__ __forceinline__ void tap_async(float4* smem_dst,
+                                          const float4* gmem_src,
+                                          bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_taps() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// sample_plane's first half (render_sample.cuh): plane `plane`'s four taps
+// at target pixel (ox, oy) copied asynchronously into taps[0..3] (stride
+// kTilePixels), each zero outside the image, all four zero out of reach.
+// Returns the fractions (wx, wy), zero out of reach, and commits one
+// cp.async group.
+__device__ __forceinline__ float2 fetch_taps(const float4* __restrict__ plane,
+                                             const float* h, float ox,
+                                             float oy, float fw, float fh,
+                                             int width, int height,
+                                             float4* taps) {
+  float px, py;
+  warp_point(h, ox, oy, fw, fh, &px, &py);
+  const bool reach = in_reach(px, py, fw, fh);
+  TapPoint t = {0, 0, 0.f, 0.f};
+  if (reach) t = tap_point(px, py);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int x = t.x0 + (k & 1);
+    const int y = t.y0 + (k >> 1);
+    const bool ok = reach && x >= 0 && x < width && y >= 0 && y < height;
+    tap_async(taps + k * kTilePixels, plane + (ok ? y * width + x : 0), ok);
+  }
+  commit_taps();
+  return make_float2(t.wx, t.wy);
+}
+
+// Its second half: sample_plane's blend of the staged taps. Out of reach
+// the zero taps and fractions give +0, as sample_plane's early return.
+__device__ __forceinline__ float4 blend_staged(const float4* taps, float2 f) {
+  return blend_taps(taps[0], taps[kTilePixels], taps[2 * kTilePixels],
+                    taps[3 * kTilePixels], f.x, f.y);
+}
+
+// Up to kBucket planes, both loops unrolled to kBucket (p < num_planes
+// guards the tail), so every index is a constant and plane p's record
+// rec[p] a named register. The taps wait in shared memory, not in
+// registers: plane p's in ring slot p % kAhead, refilled with plane p +
+// kAhead once p is blended, one cp.async group a plane (an empty one past
+// the last plane, so that waiting for all but the kAhead - 1 newest
+// groups always means plane p's).
+template <int kBucket>
+__global__ void __launch_bounds__(kTilePixels)
+rewarp_composite_vjp_kernel_registers(const float4* __restrict__ planes,
+                                      const float* __restrict__ homs,
+                                      const float* __restrict__ g,
+                                      float4* __restrict__ dwarped, int views,
+                                      int num_planes, int height, int width,
+                                      long long view_stride4,
+                                      long long items) {
+  __shared__ float sh_homs[kBucket * 9];
+  __shared__ float4 sh_taps[kAhead][4][kTilePixels];  // [slot][tap][thread]
+  const int tid = threadIdx.x;
+  const int tiles_x = (width + kTileAX - 1) / kTileAX;
+  const long long plane_size = static_cast<long long>(height) * width;
+  const float fw = static_cast<float>(width);
+  const float fh = static_cast<float>(height);
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item it = open_item(item, views, tiles_x, homs, num_planes,
+                              sh_homs, kTilePixels);
+    const int x = it.x_lo + tid % kTileAX;
+    const int y = it.y_lo + tid / kTileAX;
+    if (x >= width || y >= height) continue;
+    const float ox = static_cast<float>(x);
+    const float oy = static_cast<float>(y);
+    const long long pixel = static_cast<long long>(y) * width + x;
+    const float4* scene = planes + view_stride4 * it.view;
+
+    // Forward.
+    float2 frac[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (i < num_planes) {
+        frac[i] = fetch_taps(scene + plane_size * i, sh_homs + i * 9, ox, oy,
+                             fw, fh, width, height, &sh_taps[i][0][tid]);
+      } else {
+        commit_taps();
+      }
+    }
+    float4 rec[kBucket];
+    float cr = 0.f, cg = 0.f, cb = 0.f;
+#pragma unroll
+    for (int p = 0; p < kBucket; ++p) {
+      if (p >= num_planes) break;
+      constexpr int kWait = kAhead - 1;
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kWait) : "memory");
+      const int slot = p % kAhead;
+      const float4 s = blend_staged(&sh_taps[slot][0][tid], frac[slot]);
+      const int q = p + kAhead;
+      if (q < num_planes) {
+        frac[slot] = fetch_taps(scene + plane_size * q, sh_homs + q * 9, ox,
+                                oy, fw, fh, width, height,
+                                &sh_taps[slot][0][tid]);
+      } else {
+        commit_taps();
+      }
+      if (p == 0) {  // farthest plane: alpha ignored
+        cr = s.x;
+        cg = s.y;
+        cb = s.z;
+      } else {
+        rec[p] = make_float4(s.x - cr, s.y - cg, s.z - cb, s.w);
+        const float keep = 1.f - s.w;
+        cr = s.x * s.w + cr * keep;
+        cg = s.y * s.w + cg * keep;
+        cb = s.z * s.w + cb * keep;
+      }
+    }
+
+    // Reverse: front to back; dwarped is written once, streamed past L2.
+    const float* gp =
+        g + (static_cast<long long>(it.view) * plane_size + pixel) * 3;
+    float4* out = dwarped
+        + static_cast<long long>(it.view) * num_planes * plane_size + pixel;
+    float g0 = gp[0], g1 = gp[1], g2 = gp[2];
+#pragma unroll
+    for (int p = kBucket - 1; p >= 1; --p) {
+      if (p >= num_planes) continue;
+      const float4 r = rec[p];  // (rgb - below, alpha)
+      const float a = r.w;
+      const float da = g0 * r.x + g1 * r.y + g2 * r.z;
+      __stcs(out + plane_size * p, make_float4(g0 * a, g1 * a, g2 * a, da));
+      const float keep = 1.f - a;
+      g0 = g0 * keep;
+      g1 = g1 * keep;
+      g2 = g2 * keep;
+    }
+    __stcs(out, make_float4(g0, g1, g2, 0.f));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// -- The shared path: a tile's samples staged in shared memory. ----------
+//
+// One thread per target pixel holds too many records for enough threads
+// to keep HBM busy. So a block of kSharedThreads works on one tile in
+// three phases, with a [plane][pixel] float4 slot per sample:
+//   1. every thread samples (plane, pixel) pairs, a warp one plane of a
+//      tile row: loads from many threads in flight, coalesced;
+//   2. one thread per pixel composites front to back over its slots,
+//      overwriting each sample with its record, then runs the VJP back
+//      over them, overwriting each record with its gradient;
+//   3. every thread stores the slots to dwarped, a warp 512 contiguous
+//      bytes of one plane's row.
+__global__ void __launch_bounds__(kSharedThreads, kSharedBlocks)
+rewarp_composite_vjp_kernel_shared(const float4* __restrict__ planes,
+                                   const float* __restrict__ homs,
+                                   const float* __restrict__ g,
+                                   float4* __restrict__ dwarped, int views,
+                                   int num_planes, int height, int width,
+                                   long long view_stride4, long long items) {
+  extern __shared__ __align__(16) unsigned char smem_a[];
+  float4* slots = reinterpret_cast<float4*>(smem_a);  // [P][kTilePixels]
+  float* sh_homs = reinterpret_cast<float*>(slots + num_planes * kTilePixels);
+  const int tid = threadIdx.x;
+  const int tiles_x = (width + kTileAX - 1) / kTileAX;
+  const long long plane_size = static_cast<long long>(height) * width;
+  const float fw = static_cast<float>(width);
+  const float fh = static_cast<float>(height);
+  const int n = num_planes * kTilePixels;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item it = open_item(item, views, tiles_x, homs, num_planes,
+                              sh_homs, kSharedThreads);
+    const float4* scene = planes + view_stride4 * it.view;
+    // 1. Sample.
+    for (int k = tid; k < n; k += kSharedThreads) {
+      const int p = k / kTilePixels;
+      const int x = it.x_lo + k % kTileAX;
+      const int y = it.y_lo + (k % kTilePixels) / kTileAX;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (x < width && y < height) {
+        float px, py;
+        warp_point(sh_homs + p * 9, static_cast<float>(x),
+                   static_cast<float>(y), fw, fh, &px, &py);
+        s = sample_plane(scene + plane_size * p, px, py, width, height);
+      }
+      slots[k] = s;
+    }
+    __syncthreads();
+    // 2. Composite and VJP, in place.
+    const int x = it.x_lo + tid % kTileAX;
+    const int y = it.y_lo + tid / kTileAX;
+    if (tid < kTilePixels && x < width && y < height) {
+      float4* mine = slots + tid;
+      float4 s = mine[0];  // farthest plane: alpha ignored
+      float cr = s.x, cg = s.y, cb = s.z;
+      for (int p = 1; p < num_planes; ++p) {
+        s = mine[p * kTilePixels];
+        mine[p * kTilePixels] =
+            make_float4(s.x - cr, s.y - cg, s.z - cb, s.w);
+        const float keep = 1.f - s.w;
+        cr = s.x * s.w + cr * keep;
+        cg = s.y * s.w + cg * keep;
+        cb = s.z * s.w + cb * keep;
+      }
+      const float* gp = g + (static_cast<long long>(it.view) * plane_size
+                             + static_cast<long long>(y) * width + x) * 3;
+      float g0 = gp[0], g1 = gp[1], g2 = gp[2];
+      for (int p = num_planes - 1; p >= 1; --p) {
+        const float4 r = mine[p * kTilePixels];  // (rgb - below, alpha)
+        const float a = r.w;
+        const float da = g0 * r.x + g1 * r.y + g2 * r.z;
+        mine[p * kTilePixels] = make_float4(g0 * a, g1 * a, g2 * a, da);
+        const float keep = 1.f - a;
+        g0 = g0 * keep;
+        g1 = g1 * keep;
+        g2 = g2 * keep;
+      }
+      mine[0] = make_float4(g0, g1, g2, 0.f);
+    }
+    __syncthreads();
+    // 3. Store, streamed past L2.
+    float4* out =
+        dwarped + static_cast<long long>(it.view) * num_planes * plane_size;
+    for (int k = tid; k < n; k += kSharedThreads) {
+      const int p = k / kTilePixels;
+      const int xs = it.x_lo + k % kTileAX;
+      const int ys = it.y_lo + (k % kTilePixels) / kTileAX;
+      if (xs < width && ys < height) {
+        __stcs(out + plane_size * p + static_cast<long long>(ys) * width + xs,
+               slots[k]);
+      }
+    }
+  }
 }
 
 // Warp 0 of a block maps the corners (cx_lo | cx_hi, cy_lo | cy_hi) of a
@@ -531,10 +849,66 @@ adjoint_warp_kernel(const float4* __restrict__ dwarped,
   }
 }
 
+// Kernel A's paths, the values of RewarpLaunch::path.
+enum RewarpPath { kPathRegisters = 0, kPathShared = 1, kPathGlobal = 2 };
+
+// Kernel A's launch at a shape, chosen by the plane count alone.
+struct RewarpLaunch {
+  int path;
+  int bucket;       // planes unrolled on the registers path, else 0
+  dim3 block, grid;
+  long long items;  // (view, tile) items the 1-D grid walks, else 0
+  size_t smem;      // dynamic shared bytes
+};
+
+RewarpLaunch rewarp_launch(int views, int num_planes, int height,
+                           int width) {
+  RewarpLaunch l{};
+  const size_t homs_bytes = static_cast<size_t>(num_planes) * 9 * sizeof(float);
+  if (num_planes > kSmemPlanes) {
+    l.path = kPathGlobal;
+    l.block = dim3(kBlockX, kBlockY, 1);
+    l.grid = dim3((width + kBlockX - 1) / kBlockX,
+                  (height + kBlockY - 1) / kBlockY, views);
+    l.smem = homs_bytes;
+    return l;
+  }
+  l.items = static_cast<long long>((width + kTileAX - 1) / kTileAX) *
+            ((height + kTileAY - 1) / kTileAY) * views;
+  l.grid = dim3(static_cast<unsigned>(l.items < INT_MAX ? l.items : INT_MAX),
+                1, 1);
+  if (num_planes > kRegPlanes) {
+    l.path = kPathShared;
+    l.block = dim3(kSharedThreads, 1, 1);
+    l.smem = static_cast<size_t>(num_planes) * kTilePixels * sizeof(float4) +
+             homs_bytes;
+    return l;
+  }
+  l.path = kPathRegisters;
+  l.bucket = (num_planes + kRegBucket - 1) / kRegBucket * kRegBucket;
+  l.block = dim3(kTilePixels, 1, 1);
+  return l;
+}
+
 }  // namespace
 
-// Kernel A on `stream` for `views` views. Returns the CUDA error code of the
-// launch (0 on success); the caller raises on anything else.
+// Kernel A's launch at this shape, as mpi_rewarp_composite_vjp makes it:
+// out[0..9] = path (0 registers, 1 shared, 2 global), bucket (0 off the
+// registers path), block x, y, z, grid x, y, z, items (0 on the global
+// path) and dynamic shared bytes. render_fused_bwd.py holds its mirror,
+// rewarp_launch_shape, to this.
+extern "C" void mpi_rewarp_launch_shape(int views, int num_planes, int height,
+                                        int width, long long* out) {
+  const RewarpLaunch l = rewarp_launch(views, num_planes, height, width);
+  const long long fields[10] = {l.path,   l.bucket, l.block.x, l.block.y,
+                                l.block.z, l.grid.x, l.grid.y,  l.grid.z,
+                                l.items,  static_cast<long long>(l.smem)};
+  for (int i = 0; i < 10; ++i) out[i] = fields[i];
+}
+
+// Kernel A on `stream` for `views` views, launched as rewarp_launch picks
+// for the shape. Returns the CUDA error code of the shared-memory opt-in or
+// the launch (0 on success); the caller raises on anything else.
 extern "C" int mpi_rewarp_composite_vjp(const void* planes, const void* homs,
                                         const void* g, void* dwarped,
                                         int views, int num_planes, int height,
@@ -542,15 +916,38 @@ extern "C" int mpi_rewarp_composite_vjp(const void* planes, const void* homs,
                                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY, views);
-  const size_t smem = static_cast<size_t>(num_planes) * 9 * sizeof(float);
-  rewarp_composite_vjp_kernel<<<grid, block, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(planes), static_cast<const float*>(homs),
-      static_cast<const float*>(g), static_cast<float4*>(dwarped), num_planes,
-      height, width, view_stride / 4);
+  const auto* in = static_cast<const float4*>(planes);
+  const auto* h = static_cast<const float*>(homs);
+  const auto* gg = static_cast<const float*>(g);
+  auto* out = static_cast<float4*>(dwarped);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const RewarpLaunch l = rewarp_launch(views, num_planes, height, width);
+  if (l.path == kPathGlobal) {
+    rewarp_composite_vjp_kernel_global<<<l.grid, l.block, l.smem, s>>>(
+        in, h, gg, out, num_planes, height, width, view_stride / 4);
+  } else if (l.path == kPathShared) {
+    if (l.smem > 48 * 1024) {
+      // One value for every plane count, so that concurrent launches never
+      // lower each other's limit.
+      err = cudaFuncSetAttribute(
+          rewarp_composite_vjp_kernel_shared,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kSmemPlanes * (kTilePixels * sizeof(float4) +
+                                          9 * sizeof(float))));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    rewarp_composite_vjp_kernel_shared<<<l.grid, l.block, l.smem, s>>>(
+        in, h, gg, out, views, num_planes, height, width, view_stride / 4,
+        l.items);
+  } else {
+    auto kernel = l.bucket == 4    ? rewarp_composite_vjp_kernel_registers<4>
+                  : l.bucket == 8  ? rewarp_composite_vjp_kernel_registers<8>
+                  : l.bucket == 12 ? rewarp_composite_vjp_kernel_registers<12>
+                                   : rewarp_composite_vjp_kernel_registers<16>;
+    kernel<<<l.grid, l.block, l.smem, s>>>(in, h, gg, out, views, num_planes,
+                                           height, width, view_stride / 4,
+                                           l.items);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,11 @@ planner with an XLA fallback. Here two hand-written CUDA kernels
 for every pose, with no plan and no fallback:
 
   * kernel A, ``rewarp_composite_vjp`` — re-warps every plane exactly as
-    the forward kernel samples it and runs the over-composite's VJP in the
-    same thread, giving ``dwarped [V, P, H, W, 4]``;
+    the forward kernel samples it and runs the over-composite's VJP per
+    pixel, giving ``dwarped [V, P, H, W, 4]``. The plane count picks where
+    each plane's forward record waits for the reverse pass: in registers,
+    in shared memory, or (past ``SMEM_PLANES``) in dwarped itself;
+    ``rewarp_launch_shape`` mirrors the choice;
   * kernel B, ``adjoint_warp`` — the warp transpose in gather form: each
     source pixel sums, in a fixed order, the target pixels whose forward
     sample point reaches it (no atomics: the gradient is deterministic).
@@ -34,6 +37,7 @@ it from the render's autograd ``Function``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,8 +51,12 @@ from mpi_vision_tpu_torch.kernels.render_fused import (
 
 KERNEL = "render_fused_bwd"
 # The C entry points of csrc/render_fused_bwd.cu (pointers, counts, the
-# view stride in floats or the shared flag, device index, stream).
+# view stride in floats or the shared flag, device index, stream), and
+# kernel A's launch at a shape (counts, ten fields out).
 _SIGNATURES = {
+    "mpi_rewarp_launch_shape": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_longlong)], None),
     "mpi_rewarp_composite_vjp": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -68,8 +76,29 @@ FLOPS_A = render_fused.FLOPS_PER_SAMPLE + 15
 # kernel evaluates): the homography (15), floor and fractions (6), the four
 # tap weights (4) and 4 taps x 4 channels x (mul + add) (32).
 FLOPS_B = 15 + 6 + 4 + 32
-# Kernel A stages one view's P x 9 homographies in shared memory.
+# Kernel A stages one view's P x 9 homographies in shared memory; its
+# global path takes them without the opt-in past 48 KiB.
 MAX_PLANES = render_fused.SMEM_LIMIT // (9 * 4)
+# Kernel A's paths, chosen by the plane count in the .cu (rewarp_launch;
+# these mirror its constants): up to REG_PLANES the records live in
+# registers (one thread per pixel, a kernel per bucket of REG_BUCKET
+# planes), up to SMEM_PLANES in shared memory (a block of SHARED_THREADS
+# stages a tile's samples, [plane][pixel] float4, and turns them into
+# records in place), past that in dwarped (the global path, blocks of
+# TILE_A_GLOBAL, one view per grid z). The first two take (view, TILE_A
+# tile) items, the views of a tile adjacent, from a 1-D grid.
+TILE_A = (32, 2)
+TILE_A_GLOBAL = (32, 8)
+REG_PLANES = 16
+REG_BUCKET = 4
+SMEM_PLANES = 64
+SHARED_THREADS = 256
+GRID_X_MAX = 2**31 - 1
+# The C side's path codes, in order.
+REWARP_PATHS = ("registers", "shared", "global")
+# The shared path's opt-in, one value for every plane count: the slots and
+# maps of SMEM_PLANES planes.
+SMEM_OPT_IN = SMEM_PLANES * (TILE_A[0] * TILE_A[1] * 16 + 9 * 4)
 # Kernel B: one block per TILE_B source tile of one plane, one thread per
 # column and ROWS_PER_THREAD rows. Its preimage is staged in chunks of up to
 # CHUNK targets and MAX_SEGS row segments, rows wider than SEG_MAX cut into
@@ -112,10 +141,68 @@ def check_adjoint_launch(views: int, num_planes: int, height: int,
   return shape
 
 
+def rewarp_launch_shape(views: int, num_planes: int, height: int,
+                        width: int) -> dict:
+  """Kernel A's launch, as ``csrc/render_fused_bwd.cu`` chooses it (its
+  mirror: ``kernel_rewarp_launch_shape`` asks the built kernel, and the
+  wrapper holds the two equal before it launches). The ``path``
+  (``registers``, ``shared`` or ``global``), the register ``bucket``
+  (planes unrolled; None off the registers path), ``block``, ``grid``, the
+  (view, tile) ``items`` the 1-D grid walks (None on the global path) and
+  the dynamic ``smem_bytes``: the shared path's sample slots and maps, the
+  global path's maps (the registers path holds its bucket's maps in static
+  shared memory)."""
+  homs = num_planes * 9 * 4
+  if num_planes > SMEM_PLANES:
+    return {"path": "global", "bucket": None, "block": (*TILE_A_GLOBAL, 1),
+            "grid": (-(-width // TILE_A_GLOBAL[0]),
+                     -(-height // TILE_A_GLOBAL[1]), views),
+            "items": None, "smem_bytes": homs}
+  pixels = TILE_A[0] * TILE_A[1]
+  items = -(-width // TILE_A[0]) * -(-height // TILE_A[1]) * views
+  shape = {"grid": (min(items, GRID_X_MAX), 1, 1), "items": items}
+  if num_planes > REG_PLANES:
+    return {"path": "shared", "bucket": None,
+            "block": (SHARED_THREADS, 1, 1),
+            "smem_bytes": num_planes * pixels * 16 + homs, **shape}
+  return {"path": "registers",
+          "bucket": -(-num_planes // REG_BUCKET) * REG_BUCKET,
+          "block": (pixels, 1, 1), "smem_bytes": 0, **shape}
+
+
+def check_rewarp_launch(views: int, num_planes: int, height: int,
+                        width: int) -> dict:
+  """``rewarp_launch_shape``, or a ``ValueError`` naming what kernel A
+  cannot take: more planes than ``MAX_PLANES``, more views than the global
+  path's grid, or a plane of 2^31 pixels or more (32-bit offsets)."""
+  if num_planes > MAX_PLANES:
+    raise ValueError(f"{num_planes} planes exceed the kernel's {MAX_PLANES}")
+  if views > render_fused.MAX_VIEWS:
+    raise ValueError(f"{views} views exceed the kernel's "
+                     f"{render_fused.MAX_VIEWS}")
+  if height * width > render_fused.MAX_PLANE_PIXELS:
+    raise ValueError(f"{height} x {width} pixels per plane exceed the "
+                     "kernel's 32-bit plane offsets")
+  return rewarp_launch_shape(views, num_planes, height, width)
+
+
 def _library():
   from mpi_vision_tpu_torch.kernels import _build
 
   return _build.load(KERNEL, _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_rewarp_launch_shape(views: int, num_planes: int, height: int,
+                               width: int) -> dict:
+  """Kernel A's launch as the built kernel makes it, with the keys of
+  ``rewarp_launch_shape``. Builds and loads the library (needs ``nvcc``)."""
+  out = (ctypes.c_longlong * 10)()
+  _library().mpi_rewarp_launch_shape(views, num_planes, height, width, out)
+  path, bucket, bx, by, bz, gx, gy, gz, items, smem = out
+  return {"path": REWARP_PATHS[path], "bucket": bucket or None,
+          "block": (bx, by, bz), "grid": (gx, gy, gz),
+          "items": items or None, "smem_bytes": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +233,8 @@ def plain_rewarp_composite_vjp(planes: torch.Tensor, homs: torch.Tensor,
   Returns:
     ``dwarped [V, P, H, W, 4]``: the gradient of each warped plane's RGBA.
     The forward pass parks ``(rgb - below, alpha)`` per plane in the output,
-    as the kernel does, and the reverse pass overwrites it.
+    as the kernel's global path does (its other paths keep these records
+    on chip), and the reverse pass overwrites it.
   """
   with _count_lock:
     plain_rewarp_composite_vjp.calls += 1
@@ -187,24 +275,24 @@ def rewarp_composite_vjp(planes: torch.Tensor, homs: torch.Tensor,
                          g: torch.Tensor) -> torch.Tensor:
   """Kernel A: ``dwarped [V, P, H, W, 4]`` (see the plain version).
 
-  CUDA tensors launch the kernel on the current stream (no synchronise)
-  and count ``rewarp_composite_vjp.launches``; CPU tensors run the plain
-  version. Mixed devices, other dtypes, non-contiguous or misaligned
-  tensors on the card, a missing ``nvcc``, a failed build or launch raise.
+  CUDA tensors launch the kernel of the path ``check_rewarp_launch`` names
+  on the current stream (no synchronise) and count
+  ``rewarp_composite_vjp.launches``; CPU tensors run the plain version.
+  Mixed devices, other dtypes, non-contiguous or misaligned tensors on the
+  card, a missing ``nvcc``, a failed build, a kernel whose launch is not
+  ``check_rewarp_launch``'s, a failed shared-memory opt-in or launch
+  raise.
   """
   views, num_planes, h, w = _check_a(planes, homs, g)
   if all(t.device.type == "cpu" for t in (planes, homs, g)):
     return plain_rewarp_composite_vjp(planes, homs, g)
   dev = _cuda_ready("rewarp_composite_vjp",
                     {"planes": planes, "homs": homs, "g": g}, "planes")
-  if num_planes > MAX_PLANES:
-    raise ValueError(f"{num_planes} planes exceed the kernel's {MAX_PLANES}")
-  if views > render_fused.MAX_VIEWS:
-    raise ValueError(f"{views} views exceed the kernel's "
-                     f"{render_fused.MAX_VIEWS}")
-  if h * w > render_fused.MAX_PLANE_PIXELS:
-    raise ValueError(f"{h} x {w} pixels per plane exceed the kernel's "
-                     "32-bit plane offsets")
+  shape = check_rewarp_launch(views, num_planes, h, w)
+  launched = kernel_rewarp_launch_shape(views, num_planes, h, w)
+  if launched != shape:
+    raise RuntimeError(f"rewarp_launch_shape {shape} is not the kernel's "
+                       f"launch {launched}")
   out = torch.empty((views, num_planes, h, w, 4), dtype=torch.float32,
                     device=dev)
   view_stride = 0 if planes.dim() == 4 else num_planes * h * w * 4
@@ -214,7 +302,8 @@ def rewarp_composite_vjp(planes: torch.Tensor, homs: torch.Tensor,
       torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"rewarp_composite_vjp kernel launch failed: CUDA "
-                       f"error {err}")
+                       f"error {err} (the shared-memory opt-in or the "
+                       "launch)")
   with _count_lock:
     rewarp_composite_vjp.launches += 1
   return out

@@ -3,9 +3,10 @@
 ``mpi_vision_tpu_torch.kernels.render_fused_bwd`` on CPU tensors runs the
 plain versions of its two CUDA kernels (re-warp + composite VJP, and the
 warp transpose); ``chip_smoke.py`` holds the kernels to them on the card.
-The JAX side runs its Pallas backward kernels in interpret mode for three
-cases (they are slow) and its XLA oracle, ``jax.vjp`` of
-``_reference_render_batch``, for the rest.
+The JAX side runs its Pallas backward kernels in interpret mode for a few
+cases (they are slow: the re-warp at 1, 4, 10 and 17 planes, the whole
+backward once), the XLA warp for the re-warp at 33 planes, and its XLA
+oracle, ``jax.vjp`` of ``_reference_render_batch``, for the rest.
 
 Tolerances are the JAX package's own for the same functions
 (``tests/test_render_pallas_bwd.py``): atol 1e-5 for the separable re-warp
@@ -59,11 +60,12 @@ def _pose(tx=0.0, ty=0.0, tz=0.0, rx=0.0, ry=0.0):
 
 
 def _homs(pose_kw, p, h, w):
-  """Pixel homographies from the JAX package: ``[P, 3, 3]`` numpy."""
+  """Pixel homographies from the JAX package: ``[P, 3, 3]`` numpy (one
+  plane: the farthest of ``inv_depths``, which always holds both ends)."""
   k = np.array([[0.6 * w, 0, w / 2], [0, 0.6 * w, h / 2], [0, 0, 1]],
                np.float32)[None]
   return np.asarray(rp.pixel_homographies(
-      jnp.asarray(_pose(**pose_kw)), jinv_depths(1.0, 100.0, p),
+      jnp.asarray(_pose(**pose_kw)), jinv_depths(1.0, 100.0, p)[:p],
       jnp.asarray(k), h, w))[:, 0]
 
 
@@ -101,19 +103,51 @@ def _planar(dplanes):
   return dplanes.permute(0, 3, 1, 2).numpy()
 
 
-@pytest.mark.parametrize("pose_kw,separable,atol", [
-    (TRANSLATION, True, 1e-5), (ROTATION, False, 1e-3)])
+@jax.jit
+def _xla_warp(planes, homs):
+  """The XLA warp of ``core/render.py`` (``warp_planes``'s gather) on one
+  view's pixel homographies ``[P, 3, 3]``: planar ``[1, P, 4, H, W]``."""
+  h, w = planes.shape[-2:]
+  grid = jnp.moveaxis(jgeometry.homogeneous_grid(h, w), 0, -1)
+  xy = jgeometry.from_homogeneous(
+      jgeometry.apply_homography(grid, homs[:, None]))
+  coords = (xy + 0.5) / jnp.array([w, h], xy.dtype)
+  nhwc = jnp.moveaxis(planes, 1, -1)[:, None]
+  return jnp.moveaxis(jsampling.bilinear_sample(nhwc, coords)[:, 0], -1,
+                      1)[None]
+
+
+# Kernel A's cases: (pose, separable, atol, planes, H, W, warp). The plane
+# counts fall on each of its paths (P <= 16 registers, 17-64 shared memory)
+# on the port's side; the JAX side re-warps with its Pallas kernels in
+# interpret mode ("pallas") or, at 33 planes, with the XLA warp ("xla"),
+# whose tolerance is the general pose's.
+REWARP_CASES = [
+    pytest.param(TRANSLATION, True, 1e-5, 4, 32, 256, "pallas",
+                 id="pose_kw0-True-1e-05"),
+    pytest.param(ROTATION, False, 1e-3, 4, 32, 256, "pallas",
+                 id="pose_kw1-False-0.001"),
+    pytest.param(TRANSLATION, True, 1e-5, 1, 24, 128, "pallas", id="p1"),
+    pytest.param(TRANSLATION, True, 1e-5, 10, 24, 128, "pallas", id="p10"),
+    pytest.param(ROTATION, False, 1e-3, 17, 24, 128, "pallas", id="p17"),
+    pytest.param(ROTATION, False, 1e-3, 33, 24, 128, "xla", id="p33"),
+]
+
+
+@pytest.mark.parametrize("pose_kw,separable,atol,p,h,w,warp", REWARP_CASES)
 def test_rewarp_composite_vjp_vs_pallas_interpret(rng, pose_kw, separable,
-                                                  atol):
+                                                  atol, p, h, w, warp):
   """Kernel A's plain version vs the JAX re-warp kernel (interpret mode)
-  followed by its XLA composite VJP."""
-  p, h, w = 4, 32, 256
+  or the XLA warp, followed by its XLA composite VJP."""
   planes, homs, g = _inputs(rng, pose_kw, p, h, w)
   assert rp.is_separable(homs) == separable
-  plan = (rp._sep_windows_needed(homs, h, w) if separable
-          else rp._plan_shared(homs[0], h, w))
-  warped = rpb.warp_planes_fused(jnp.asarray(planes)[None],
-                                 jnp.asarray(homs), separable, plan)
+  if warp == "xla":
+    warped = _xla_warp(jnp.asarray(planes), jnp.asarray(homs[0]))
+  else:
+    plan = (rp._sep_windows_needed(homs, h, w) if separable
+            else rp._plan_shared(homs[0], h, w))
+    warped = rpb.warp_planes_fused(jnp.asarray(planes)[None],
+                                   jnp.asarray(homs), separable, plan)
   want = np.asarray(rpb._composite_bwd(warped, jnp.asarray(g)))[0]
   got = rb.rewarp_composite_vjp(*_port(planes, homs, g))[0]
   np.testing.assert_allclose(got.permute(0, 3, 1, 2).numpy(), want,
@@ -341,6 +375,55 @@ def test_adjoint_launch_shape():
   assert shape["smem_bytes"] <= (227 * 1024) // 5 - 1024
   assert rb.adjoint_launch_shape(3, 10, 224, 224, False)["grid"] == (4, 14,
                                                                      30)
+
+
+def test_rewarp_launch_shape():
+  """Kernel A's path by plane count: registers up to 16 (buckets of 4, a
+  thread per pixel), shared memory up to the cap (a block of 256 threads,
+  within the 227 KB opt-in), the global path past it; the first two walk
+  (view, 32 x 2 tile) items."""
+  for p, bucket in ((1, 4), (4, 4), (5, 8), (10, 12), (16, 16)):
+    shape = rb.rewarp_launch_shape(1, p, 1080, 1920)
+    assert (shape["path"], shape["bucket"]) == ("registers", bucket)
+    assert shape["block"] == (64, 1, 1) and shape["smem_bytes"] == 0
+  for p in (17, 32, 33, rb.SMEM_PLANES):
+    shape = rb.rewarp_launch_shape(8, p, 1080, 1920)
+    assert shape["path"] == "shared" and shape["bucket"] is None
+    assert shape["smem_bytes"] == p * (64 * 16 + 36)
+    assert shape["smem_bytes"] <= rb.SMEM_OPT_IN <= 227 * 1024
+    assert shape["block"] == (256, 1, 1)
+    assert shape["items"] == 60 * 540 * 8 == shape["grid"][0]
+  # 1080p x 32: six blocks of 34 KB (each with its 1 KiB reserved) fit an
+  # SM's shared memory.
+  assert 6 * (rb.rewarp_launch_shape(1, 32, 1080, 1920)["smem_bytes"]
+              + 1024) <= 227 * 1024
+  for p in (rb.SMEM_PLANES + 1, 100, rb.MAX_PLANES):
+    shape = rb.rewarp_launch_shape(3, p, 1080, 1920)
+    assert shape["path"] == "global" and shape["items"] is None
+    assert shape["grid"] == (60, 135, 3) and shape["block"] == (32, 8, 1)
+    assert shape["smem_bytes"] == p * 36 <= rb.render_fused.SMEM_LIMIT
+  # A grid of more items than gridDim.x holds loops over them.
+  big = rb.rewarp_launch_shape(65535, 8, 46340, 46340)
+  assert big["items"] > rb.GRID_X_MAX == big["grid"][0]
+
+
+def test_check_rewarp_launch_takes_every_plane_count():
+  """Every plane count the wrapper took before its paths split is taken;
+  ``check_rewarp_launch`` rejects only too many planes, views or pixels."""
+  paths = [rb.check_rewarp_launch(1, p, 8, 8)["path"]
+           for p in range(1, rb.MAX_PLANES + 1)]
+  assert paths == (["registers"] * rb.REG_PLANES
+                   + ["shared"] * (rb.SMEM_PLANES - rb.REG_PLANES)
+                   + ["global"] * (rb.MAX_PLANES - rb.SMEM_PLANES))
+  assert rb.MAX_PLANES == 48 * 1024 // 36
+  rb.check_rewarp_launch(rb.render_fused.MAX_VIEWS, 32, 1080, 1920)
+  rb.check_rewarp_launch(1, 1, 1, rb.render_fused.MAX_PLANE_PIXELS)
+  with pytest.raises(ValueError, match="planes exceed"):
+    rb.check_rewarp_launch(1, rb.MAX_PLANES + 1, 8, 8)
+  with pytest.raises(ValueError, match="views exceed"):
+    rb.check_rewarp_launch(rb.render_fused.MAX_VIEWS + 1, 4, 8, 8)
+  with pytest.raises(ValueError, match="32-bit"):
+    rb.check_rewarp_launch(1, 4, 46341, 46341)
 
 
 def test_render_mpi_fused_pallas_carries_its_gradient(rng):
