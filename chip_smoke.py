@@ -85,6 +85,26 @@ Phases:
      culled tiles and a request with fewer than 32 planes; the compose
      kernel launched, no plain version ran. Then renders/s, latency, the
      warp vs composite split of a flight, crop assembly and the busy share.
+ 10. crash-safe training (the slice's main path): ``cli.cmd_train`` in
+     process at ``TrainConfig()`` with ``--ckpt D0 --save-every 2`` over 6
+     synthetic scenes for 2 epochs (12 steps, no validation), then two
+     subprocesses of ``python -m mpi_vision_tpu_torch train`` with the same
+     arguments, one with ``--inject-fault crash@step=7,hard`` and one that
+     also corrupts save 3: each must die by SIGKILL (rc -9) leaving a
+     published ``step_*`` directory. Both resume in process with
+     ``--resume``: from step 6 (clean kill) and from step 4 with one
+     quarantine (corrupt), and both final checkpoints' digests equal D0's.
+     Around every in-process run the launch counts are zeroed and read: the
+     forward kernel, A and B launched once per step, no plain version ran.
+     One ``nan@step=3`` run rolls back once and checkpoints the halved LR;
+     ``--lr-find --lr-find-steps 20`` suggests a finite LR inside the sweep
+     with every sweep step on the kernels. A step at ``TrainConfig()`` and
+     a 256 px step (the loss resizes to 224) run under
+     ``torch.use_deterministic_algorithms(True)``, the latter's gradients
+     bit-identical twice. Then times: the step with cuDNN deterministic off
+     and on in turns, one checkpoint's save (foreground, and
+     ``BackgroundSaver``: until ``save`` returns, then the flush) and bytes,
+     and its hash-verified restore and the copy into the state.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +124,7 @@ import urllib.request
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HEIGHT, WIDTH, PLANES = 1080, 1920, 32
 TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
@@ -1026,13 +1047,264 @@ def phase9_tiled(torch, dev, scene) -> dict:
           "frames": len(frames)}
 
 
+# Phase 10: two epochs over this many synthetic scenes, 12 steps, on the
+# device its training runs name (a rehearsal on a host sets "cpu").
+CKPT_SCENES = 6
+TRAIN_DEVICE = "cuda"
+
+
+def phase10_resilience(torch, dev, workdir: str) -> dict:
+  """Crash-safe training at TrainConfig() (see the module docstring)."""
+  from mpi_vision_tpu_torch import cli, config
+  from mpi_vision_tpu_torch.ckpt import BackgroundSaver, CheckpointStore
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.tools.train_resume import store_digest
+  from mpi_vision_tpu_torch.train import loop as train_loop
+
+  counters = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+              rb.adjoint_warp)
+  plains = (render_fused.plain_render, rb.plain_rewarp_composite_vjp,
+            rb.plain_adjoint_warp)
+
+  def argv(name, *extra, epochs=2):
+    return ["train", "--synthetic", "--synthetic-scenes", str(CKPT_SCENES),
+            "--epochs", str(epochs), "--no-valid", "--device", TRAIN_DEVICE,
+            "--dataset", os.path.join(workdir, f"data_{name}"),
+            "--ckpt", os.path.join(workdir, name), "--save-every", "2",
+            *extra]
+
+  def counted(tag, args, ran_steps=None):
+    """``cli.cmd_train`` in process with the counts zeroed just before
+    and read just after; every step (``ran_steps``, default the summary's)
+    launched the forward kernel, A and B, and no plain version ran."""
+    for fn in counters:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+    t0 = time.perf_counter()
+    summary = cli.cmd_train(cli.build_parser().parse_args(args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    plain_calls = {fn.__name__: fn.calls for fn in plains}
+    steps = summary["steps"] if ran_steps is None else ran_steps(summary)
+    log(f"resilience [{tag}]: summary {json.dumps(summary)} in "
+        f"{seconds:.2f}s; launches {json.dumps(launches)}; plain versions "
+        f"{json.dumps(plain_calls)}")
+    check(summary["nonfinite_losses"] == 0, f"{tag}: non-finite losses")
+    check(steps > 0 and all(n == steps for n in launches.values()),
+          f"{tag}: {steps} steps but launches {launches}")
+    check(not any(plain_calls.values()),
+          f"{tag}: a plain version ran: {plain_calls}")
+    return summary, launches, seconds
+
+  def digest(name):
+    return store_digest(CheckpointStore(os.path.join(workdir, name)))
+
+  def victim(name, *faults):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_vision_tpu_torch",
+         *argv(name, *[a for f in faults for a in ("--inject-fault", f)])],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    published = sorted(n for n in os.listdir(os.path.join(workdir, name))
+                       if n.startswith("step_"))
+    log(f"resilience [victim {name}]: rc {proc.returncode} after "
+        f"{time.perf_counter() - t0:.2f}s; published {published}")
+    check(proc.returncode == -9,
+          f"victim {name} did not die by SIGKILL: rc {proc.returncode}\n"
+          f"{proc.stderr[-3000:]}")
+    check(published, f"victim {name} left no published checkpoint")
+
+  flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+  try:
+    # The uninterrupted run, then the victims, each resumed in process.
+    clean, clean_launches, clean_s = counted("uninterrupted", argv("clean"))
+    check(clean["ckpt"]["final_step"] == 2 * CKPT_SCENES
+          and clean["ckpt"]["resumed_from"] is None,
+          f"uninterrupted run: {clean['ckpt']}")
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "--ckpt on the card did not make cuDNN deterministic")
+    d0 = digest("clean")
+    victim("kill", "crash@step=7,hard")
+    victim("rot", "crash@step=7,hard", "corrupt@save=3")
+    resumed, resumed_launches, resumed_s = counted(
+        "resumed after SIGKILL", argv("kill", "--resume"))
+    rot, _, _ = counted("resumed after corrupt + SIGKILL",
+                        argv("rot", "--resume"))
+    digests = {"uninterrupted": d0, "kill": digest("kill"),
+               "corrupt_kill": digest("rot")}
+    log(f"resilience: digests {json.dumps(digests)}")
+    check(resumed["ckpt"]["resumed_from"] == 6
+          and resumed["ckpt"]["quarantined"] == 0
+          and resumed["ckpt"]["final_step"] == 2 * CKPT_SCENES,
+          f"SIGKILL resume: {resumed['ckpt']}")
+    check(rot["ckpt"]["resumed_from"] == 4 and rot["ckpt"]["quarantined"] == 1
+          and rot["ckpt"]["final_step"] == 2 * CKPT_SCENES,
+          f"corrupt + SIGKILL resume: {rot['ckpt']}")
+    check(d0 and digests["kill"] == d0,
+          "the SIGKILLed run resumed to another final checkpoint")
+    check(digests["corrupt_kill"] == d0,
+          "the corrupted-then-SIGKILLed run resumed to another checkpoint")
+
+    # The NaN guard: one poisoned batch, one rollback to the step-2
+    # checkpoint, the halved LR in the checkpoint. Eight steps ran the
+    # kernels: the six kept, the poisoned one and the re-walked step 2.
+    nan, _, _ = counted("nan@step=3", argv("nan", "--inject-fault",
+                                          "nan@step=3", epochs=1),
+                        ran_steps=lambda sm: sm["steps"] + 2)
+    cfg = config.TrainConfig()
+    restored = CheckpointStore(os.path.join(workdir, "nan")).restore()
+    lr = float(restored.arrays["['learning_rate']"])
+    check(nan["ckpt"]["nan_rollbacks"] == 1
+          and nan["ckpt"]["final_step"] == CKPT_SCENES,
+          f"NaN guard: {nan['ckpt']}")
+    check(lr == cfg.learning_rate * 0.5
+          and restored.meta["learning_rate"] == lr,
+          f"the checkpointed LR {lr} is not the cut "
+          f"{cfg.learning_rate * 0.5}")
+
+    # lr_find at TrainConfig(): 20 sweep steps then one epoch at the
+    # suggestion, every step through the kernels.
+    found, found_launches, _ = counted(
+        "lr_find", ["train", "--synthetic", "--synthetic-scenes", "2",
+                    "--epochs", "1", "--no-valid", "--device", TRAIN_DEVICE,
+                    "--dataset", os.path.join(workdir, "data_lr"),
+                    "--lr-find", "--lr-find-steps", "20"],
+        ran_steps=lambda sm: render_fused.render_mpi_fused.launches)
+    check(np.isfinite(found["lr_found"])
+          and 1e-7 <= found["lr_found"] <= 10.0,
+          f"lr_find suggestion {found['lr_found']} outside the sweep")
+    check(found_launches["adjoint_warp"] > found["steps"],
+          f"the sweep launched no kernel: {found_launches}")
+
+    # No op of the step is refused under torch's deterministic mode, at
+    # TrainConfig() and with the loss's resize (256 px -> 224).
+    cfg = config.TrainConfig(data=config.DataConfig(
+        dataset_path=os.path.join(workdir, "data_clean")))
+    state = cfg.make_train_state(0, dev)
+    vgg = cfg.make_vgg(dev)
+    step = cfg.make_train_step(vgg)
+    batch = next(realestate.iterate_batches(
+        cfg.data.make_dataset(rng=np.random.default_rng(0), device=dev),
+        rng=np.random.default_rng(1)))
+    root256 = os.path.join(workdir, "data_256")
+    realestate.synthesize_dataset(root256, num_scenes=1, img_size=256)
+    cfg256 = config.TrainConfig(data=config.DataConfig(
+        dataset_path=root256, img_size=256))
+    batch256 = next(realestate.iterate_batches(
+        cfg256.data.make_dataset(rng=np.random.default_rng(0), device=dev),
+        shuffle=False))
+    state256 = cfg256.make_train_state(0, dev)
+    loss256 = train_loop.make_loss_fn(vgg, cfg256.vgg_resize, "fused_pallas")
+
+    def grads256():
+      state256.model.zero_grad(set_to_none=True)
+      loss256(state256.model, batch256).backward()
+      return [p.grad.clone() for p in state256.model.parameters()]
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+      step(state, batch)
+      first = grads256()
+      again = grads256()
+      torch.cuda.synchronize()
+      # What the loss's resize replaced: F.interpolate's bilinear backward.
+      leaf = torch.rand((1, 3, 256, 256), device=dev, requires_grad=True)
+      try:
+        torch.nn.functional.interpolate(
+            leaf, (224, 224), mode="bilinear",
+            align_corners=False).sum().backward()
+        interpolate = "allowed"
+      except RuntimeError as e:
+        interpolate = f"refused ({str(e).splitlines()[0][:160]})"
+    finally:
+      torch.use_deterministic_algorithms(False)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "two backward passes with the resize differ")
+    log("resilience: a TrainConfig() step and a 256 px step (resize to "
+        "224) run under torch.use_deterministic_algorithms(True); the "
+        "256 px gradients are bit-identical twice; F.interpolate's "
+        f"bilinear backward there: {interpolate}")
+
+    # Times: the step with cuDNN deterministic off and on, in turns.
+    def one_step():
+      step(state, batch)
+      torch.cuda.synchronize()
+
+    step_ms = {"off": [], "on": []}
+    for deterministic in (False, True, True, False):
+      torch.backends.cudnn.deterministic = deterministic
+      for _ in range(3):
+        one_step()
+      step_ms["on" if deterministic else "off"].append(host_ms(one_step, 10))
+    torch.backends.cudnn.deterministic = True
+
+    # Save (foreground, background) and restore of one checkpoint.
+    tree = train_loop.checkpoint_tree(state)
+    fg = CheckpointStore(os.path.join(workdir, "times_fg"))
+    save_ms = []
+    for i in range(3):
+      t0 = time.perf_counter()
+      fg.save(i, tree)
+      save_ms.append((time.perf_counter() - t0) * 1e3)
+    bg = BackgroundSaver(CheckpointStore(os.path.join(workdir, "times_bg")))
+    async_return_ms, async_flush_ms = [], []
+    for i in range(3):
+      t0 = time.perf_counter()
+      bg.save(i, tree)
+      t1 = time.perf_counter()
+      bg.flush()
+      async_return_ms.append((t1 - t0) * 1e3)
+      async_flush_ms.append((time.perf_counter() - t1) * 1e3)
+    check(bg.store.last_save_bytes == fg.last_save_bytes > 0,
+          "the background and foreground saves wrote other bytes")
+    restore_ms, load_ms = [], []
+    for _ in range(3):
+      t0 = time.perf_counter()
+      back = fg.restore(template=tree)
+      t1 = time.perf_counter()
+      train_loop.load_checkpoint_tree(state, back.tree(tree))
+      torch.cuda.synchronize()
+      restore_ms.append((t1 - t0) * 1e3)
+      load_ms.append((time.perf_counter() - t1) * 1e3)
+  finally:
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+  return {
+      "digest": d0,
+      "launches": {"uninterrupted": clean_launches,
+                   "resumed": resumed_launches, "lr_find": found_launches},
+      "lr_found": found["lr_found"],
+      "nan_rollback_lr": lr,
+      "uninterrupted_s": clean_s, "resumed_s": resumed_s,
+      "step_ms_cudnn_deterministic": step_ms,
+      "checkpoint_bytes": fg.last_save_bytes,
+      "save_ms": save_ms,
+      "async_save_return_ms": async_return_ms,
+      "async_save_flush_ms": async_flush_ms,
+      "restore_verify_ms": restore_ms,
+      "load_into_state_ms": load_ms,
+  }
+
+
 def main() -> int:
+  # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
+  # resize) are allowed under torch's deterministic mode.
+  os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
   import torch
 
   if not torch.cuda.is_available():
     print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
     return 2
-  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  sys.path.insert(0, ROOT)
   try:
     from mpi_vision_tpu_torch.core import render
     from mpi_vision_tpu_torch.core.sampling import Convention
@@ -1348,15 +1620,25 @@ def main() -> int:
       "card": card, "compose_1080p_x32": comp, "tiled_serving": tiled,
       "seconds_total": time.perf_counter() - t_start}}))
 
+  # -- 10. crash-safe training: the slice's main path ------------------------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+    resil = phase10_resilience(torch, dev, workdir)
+  log(json.dumps({"times_resilience": {
+      "card": card, **resil,
+      "seconds_total": time.perf_counter() - t_start}}))
+
   # -- result lines --------------------------------------------------------
   v1, v1p, v8 = (bwd_times[k] for k in ("v1", "v1_pan10", "v8"))
+  resumed = resil["launches"]["resumed"]
   rows = [{"name": "render_fused", "launches": launches,
            "train_launches": train_launches["render_mpi_fused"],
+           "resumed_train_launches": resumed["render_mpi_fused"],
            "max_abs_err": max_err, "views": 8, "ms": ms8,
            "plain_ms": plain8, "bound_ms": b8, "bound_by": by8,
            "library_ms": None, "v1_ms": ms1, "v1_pan10_ms": ms1_pan10}]
   for name, key in (("rewarp_composite_vjp", "a"), ("adjoint_warp", "b")):
     rows.append({"name": name, "launches": train_launches[name],
+                 "resumed_train_launches": resumed[name],
                  "max_abs_err": bwd_errs[name], "views": 1,
                  "ms": v1[f"{key}_ms"], "plain_ms": v1[f"plain_{key}_ms"],
                  "bound_ms": v1[f"bound_{key}_ms"],

@@ -77,9 +77,22 @@ class TrainConfig:
         seed, num_planes=self.data.num_planes,
         learning_rate=self.learning_rate, norm=self.norm, device=device)
 
+  def model_meta(self) -> dict:
+    """The manifest ``model`` block: what a checkpoint's arrays were
+    trained as."""
+    return {
+        "num_planes": self.data.num_planes,
+        "img_size": self.data.img_size,
+        "norm": self.norm,
+        "depth_near": self.data.depth_near,
+        "depth_far": self.data.depth_far,
+    }
+
   def make_vgg(self, device: "str | torch.device | None" = None):
-    """The perceptual loss's VGG16 features (``train.vgg.default_params``)
-    on ``device``."""
+    """The perceptual loss's VGG16 features on ``device``: the checkpoint
+    ``MPI_VISION_VGG16_CKPT`` names, else fixed random features
+    (``train.vgg.default_params``, which raises on a checkpoint it cannot
+    read)."""
     from mpi_vision_tpu_torch.device import resolve_device
     from mpi_vision_tpu_torch.train.vgg import VGG16Features
 

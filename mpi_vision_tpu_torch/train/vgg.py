@@ -7,17 +7,24 @@ relu3_3 and relu4_3. ``VGG16Features`` is that slice as a plain
 Sequential in torchvision's layer order, so a torchvision-format state dict
 (``{i}.weight`` / ``{i}.bias``) loads into it as it is.
 
-Weights: there is no ImageNet checkpoint in the repository. The default
-(``default_params``) is deterministic He-style random features drawn from
-a ``torch.Generator`` seeded with 0. They are NOT bitwise the JAX package's
-``init_params(0)`` (flax draws from ``jax.random``); to run both loss stacks
-with the same weights, carry the JAX params across with
-``state_dict_from_jax_params``. Real ImageNet weights wait until a state
-dict is in the repository.
+Weights (``default_params``): the checkpoint that the
+``MPI_VISION_VGG16_CKPT`` environment variable names, as the JAX package
+reads it, else deterministic He-style random features drawn from a
+``torch.Generator`` seeded with 0. The checkpoint is a directory holding
+one ``mpi-ckpt-v1`` checkpoint (``ckpt/store.py``) written by
+``save_params``; anything else the variable names raises, never falls
+back to random features. The JAX package's ``save_params`` writes an orbax
+directory, which the port cannot read: carry those params across with
+``state_dict_from_jax_params`` and write them with ``save_params``. The
+random features are NOT bitwise the JAX package's ``init_params(0)``
+(flax draws from ``jax.random``). There is no ImageNet checkpoint in the
+repository.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -99,8 +106,76 @@ def init_params(seed: int = 0) -> dict[str, torch.Tensor]:
   return state
 
 
+# The environment variable naming the VGG weights to train against.
+CKPT_ENV = "MPI_VISION_VGG16_CKPT"
+
+
+def _param_names() -> list[str]:
+  return [f"{i}.{leaf}" for i in _CONV_INDICES for leaf in ("weight", "bias")]
+
+
+def save_params(path: str, state_dict: Mapping[str, torch.Tensor]) -> str:
+  """Write a ``VGG16Features`` state dict (torchvision layout) to the
+  directory ``path`` as one ``mpi-ckpt-v1`` checkpoint at step 0 — the
+  form ``MPI_VISION_VGG16_CKPT`` names. Returns the checkpoint's dir.
+
+  For real weights: on a machine with the torchvision zoo, write
+  ``vgg16(weights="IMAGENET1K_V1").features[:23].state_dict()`` once, ship
+  the directory and point the variable at it."""
+  from mpi_vision_tpu_torch.ckpt.store import CheckpointStore
+
+  missing = set(_param_names()) - set(state_dict)
+  if missing:
+    raise KeyError(f"VGG state dict lacks {sorted(missing)}")
+  return CheckpointStore(path, keep=1).save(
+      0, {k: state_dict[k] for k in _param_names()},
+      meta={"model": "vgg16.features[:23]"})
+
+
+def load_params(path: str) -> dict[str, torch.Tensor]:
+  """The state dict ``save_params`` wrote to ``path``, hash-verified.
+
+  Raises ``FileNotFoundError`` when ``path`` is not a directory and
+  ``ValueError`` when it holds no readable checkpoint of these weights
+  (an orbax directory from the JAX package's ``save_params`` is one such
+  case), saying what it found and what it expects."""
+  from mpi_vision_tpu_torch.ckpt.store import FORMAT, CheckpointStore
+
+  expects = (f"a directory holding one {FORMAT} checkpoint "
+             "(step_0000000000/arrays.npz + manifest.json) written by "
+             "mpi_vision_tpu_torch.train.vgg.save_params")
+  if not os.path.isdir(path):
+    raise FileNotFoundError(
+        f"VGG16 checkpoint {path!r} does not exist or is not a directory; "
+        f"expected {expects}")
+  found = sorted(os.listdir(path))
+  if not any(re.match(r"^step_\d{10}$", name) for name in found):
+    raise ValueError(
+        f"VGG16 checkpoint {path!r} holds {found[:8]}, not a {FORMAT} "
+        f"checkpoint; expected {expects} (an orbax directory from the JAX "
+        "package's save_params cannot be read by the port: carry its "
+        "params across with state_dict_from_jax_params and save_params)")
+  template = dict.fromkeys(_param_names())
+  try:
+    restored = CheckpointStore(path).restore(template=template)
+  except KeyError as e:
+    raise ValueError(f"VGG16 checkpoint {path!r}: {e.args[0]}; expected "
+                     f"{expects}") from None
+  if restored is None:
+    raise ValueError(
+        f"VGG16 checkpoint {path!r} failed verification (moved to its "
+        f"quarantine/); expected {expects}")
+  return {k: torch.from_numpy(v)
+          for k, v in restored.tree(template).items()}
+
+
 def default_params() -> dict[str, torch.Tensor]:
-  """The training default: ``init_params(0)``."""
+  """The training default: the checkpoint ``MPI_VISION_VGG16_CKPT`` names
+  (``load_params``, which raises on anything it cannot read), else
+  ``init_params(0)``."""
+  path = os.environ.get(CKPT_ENV, "")
+  if path:
+    return load_params(path)
   return init_params(0)
 
 

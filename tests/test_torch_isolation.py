@@ -68,6 +68,19 @@ def test_scan_covers_the_tiled_serving_slice():
     assert name in mods
 
 
+def test_scan_covers_the_resilience_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.ckpt",
+               "mpi_vision_tpu_torch.ckpt.store",
+               "mpi_vision_tpu_torch.ckpt.guards",
+               "mpi_vision_tpu_torch.ckpt.faultinject",
+               "mpi_vision_tpu_torch.ckpt.background",
+               "mpi_vision_tpu_torch.train.faultinject",
+               "mpi_vision_tpu_torch.tools",
+               "mpi_vision_tpu_torch.tools.train_resume"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
@@ -178,3 +191,15 @@ def test_kernel_build_is_lazy():
   assert "compose_over" not in _build._libs
   assert "-fmad=false" in _build.NVCC_FLAGS
   assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_train_resume_tool_refuses_to_run_on_the_cpu_unasked(monkeypatch,
+                                                             tmp_path):
+  from mpi_vision_tpu_torch.tools import train_resume
+
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    train_resume.main(["--dir", str(tmp_path / "ckpt")])
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    train_resume.main(["--selftest"])
+  assert not (tmp_path / "ckpt").exists(), "failed after writing a store"
