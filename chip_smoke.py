@@ -105,13 +105,42 @@ Phases:
      and on in turns, one checkpoint's save (foreground, and
      ``BackgroundSaver``: until ``save`` returns, then the flush) and bytes,
      and its hash-verified restore and the copy into the state.
+ 11. train -> serve -> viewer (the slice's main path), over phase 10's
+     uninterrupted store at ``TrainConfig()``: ``ckpt.export`` restores
+     only the params (timed, bytes read against the checkpoint's) and
+     bakes 2 scenes on the card, ids in the step-and-digest form, each
+     ``rgba`` within 1e-4 of the U-Net's plain CPU forward with the same
+     weights. A ``RenderService(method="fused_pallas", convention=EXACT)``
+     behind ``make_http_server`` serves them under stable ids, every frame
+     bit-identical to a direct kernel render. Live reload: a
+     ``CheckpointWatcher`` (``serve --reload-ckpt-s``'s callback) watches
+     the store while 4 clients stream ``POST /render``; ``cmd_train
+     --resume`` publishes step 14 (2 steps, kernels A and B once each); the
+     watcher fires once, no request fails, every frame is the old bake's or
+     the new one's, and every request started after the swap renders the
+     new bake. A one-tile change swapped into a ``tile="auto"`` service
+     re-bakes one tile and its renders launch the compose kernel. A step-0
+     checkpoint of ``TrainConfig.scaled_480()`` bakes and serves one
+     480 x 480 x 33 scene, and ``tests/fixtures/scene_009`` is served
+     through ``cli.mpi_dir_scene``, both bit-identical to direct kernel
+     renders; ``export-viewer`` writes an HTML page that parses and embeds
+     10 PNG layers; two ``train --bf16`` steps at ``TrainConfig()`` run the
+     kernels with finite losses and leave an f32 checkpoint whose meta
+     says ``bfloat16``. Every window zeroes the launch counts just before
+     and reads them just after; no plain version runs in any. Then times:
+     restore, bake (224 x 10 and 480 x 33), renders/s before, during the
+     training and during the reload, swap -> first new frame, export-viewer
+     and the step in f32 and bf16 in turns.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import base64
 import concurrent.futures
+import hashlib
+import html.parser
 import json
 import os
 import statistics
@@ -1295,6 +1324,440 @@ def phase10_resilience(torch, dev, workdir: str) -> dict:
   }
 
 
+# Phase 11: the live reload's request stream runs this many HTTP clients.
+RELOAD_CLIENTS = 4
+
+
+def phase11_bridge(torch, dev, workdir: str) -> dict:
+  """Train -> serve -> viewer at TrainConfig() (see the module docstring).
+  ``workdir`` holds phase 10's uninterrupted ``--ckpt`` store (``clean``,
+  final step 12) and its dataset (``data_clean``)."""
+  from mpi_vision_tpu_torch import cli, config
+  from mpi_vision_tpu_torch.ckpt import CheckpointStore, CheckpointWatcher
+  from mpi_vision_tpu_torch.ckpt import export
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.models.stereo_mag import mpi_from_net_output
+  from mpi_vision_tpu_torch.serve import RenderService, make_http_server
+  from mpi_vision_tpu_torch.serve.cache import bake_scene
+  from mpi_vision_tpu_torch.train import loop as train_loop
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, rb.plain_rewarp_composite_vjp,
+            rb.plain_adjoint_warp, co.plain_composite)
+  launches: dict = {}
+
+  def zero():
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+
+  def read(name: str) -> dict:
+    """The counts since ``zero()`` as window ``name``; no plain version
+    may have run in it."""
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    launches[name] = counts
+    log(f"bridge [{name}]: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}")
+    check(not any(plain.values()), f"{name}: a plain version ran: {plain}")
+    return counts
+
+  def direct(scene, pose, method="fused_pallas"):
+    """A direct render of one pose of a host scene, through ``method``."""
+    baked = bake_scene("direct", *scene, device=dev)
+    return render.render_views(
+        baked.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+        baked.depths, baked.intrinsics, convention=Convention.EXACT,
+        method=method)[0].cpu().numpy()
+
+  ckpt = os.path.join(workdir, "clean")
+  data = os.path.join(workdir, "data_clean")
+  cfg = config.TrainConfig()
+  flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+  svc = tsvc = httpd = watcher = None
+  try:
+    # -- bake: params-only restore, then the forward pass on the card ---
+    step_dir = os.path.join(ckpt, sorted(
+        n for n in os.listdir(ckpt) if n.startswith("step_"))[-1])
+    with open(os.path.join(step_dir, "manifest.json")) as fh:
+      manifest = json.load(fh)
+
+    def nbytes(entry):
+      return int(np.prod(entry["shape"])) * np.dtype(entry["dtype"]).itemsize
+
+    params_bytes = sum(nbytes(e) for k, e in manifest["arrays"].items()
+                       if k.startswith("['model']"))
+    ckpt_bytes = sum(nbytes(e) for e in manifest["arrays"].values())
+    restore_ms = []
+    for _ in range(3):
+      t0 = time.perf_counter()
+      model, meta, step = export.restore_params(ckpt, device=dev)
+      torch.cuda.synchronize()
+      restore_ms.append((time.perf_counter() - t0) * 1e3)
+    digest = hashlib.sha256()
+    for key, entry in sorted(manifest["arrays"].items()):
+      if key.startswith("['model']"):
+        digest.update(key.encode())
+        digest.update(entry["sha256"].encode())
+    digest = digest.hexdigest()
+    check(step == 2 * CKPT_SCENES and meta["params_digest"] == digest
+          and meta["compute_dtype"] is None,
+          f"restore_params: step {step}, meta {meta}")
+    check(next(model.parameters()).device == dev, "model not on the card")
+    t0 = time.perf_counter()
+    scenes, info = export.scenes_from_checkpoint(ckpt, dataset_path=data,
+                                                 scenes=2, device=dev)
+    bake_ms = (time.perf_counter() - t0) * 1e3 / len(scenes)
+    ids = [sid for sid, *_ in scenes]
+    check(ids == [f"ckpt_{step}_{digest[:8]}_{i:03d}" for i in range(2)],
+          f"scene ids {ids}")
+    # The same bake through the U-Net's plain CPU forward, same weights.
+    cpu_model, _, _ = export.restore_params(ckpt, device="cpu")
+    valid = realestate.RealEstateDataset(
+        data, is_valid=True, img_size=cfg.data.img_size,
+        num_planes=cfg.data.num_planes, device=dev)
+    bake_err = 0.0
+    for i, (_, rgba, _, _) in enumerate(scenes):
+      example = valid[i]
+      with torch.no_grad():
+        pred = cpu_model(example["net_input"][None].cpu())
+        want = mpi_from_net_output(pred, example["ref_img"][None].cpu())
+      bake_err = max(bake_err, float(np.abs(rgba - want[0].numpy()).max()))
+    log(f"bridge: restored step {step} ({params_bytes} of {ckpt_bytes} "
+        f"bytes) in {restore_ms} ms; baked {ids} at "
+        f"{bake_ms:.1f} ms a scene; card vs CPU forward max_abs_err "
+        f"{bake_err:.3e}")
+    check(bake_err <= TOL, f"bake on the card vs CPU forward: {bake_err}")
+    del cpu_model, model
+
+    # -- serve the baked scenes (stable ids, as --reload-ckpt-s does) -----
+    old = {f"ckpt_{i:03d}": s[1:] for i, s in enumerate(scenes)}
+    svc = RenderService(device=dev, method="fused_pallas",
+                        convention=Convention.EXACT, max_batch=8,
+                        max_wait_ms=5.0, max_inflight=4)
+    for sid, scene in old.items():
+      svc.add_scene(sid, *scene)
+    svc.warmup()
+    httpd = make_http_server(svc, port=0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def post(scene_id, pose):
+      body = json.dumps({"scene_id": scene_id,
+                         "pose": pose.tolist()}).encode()
+      req = urllib.request.Request(
+          f"http://127.0.0.1:{port}/render", data=body,
+          headers={"Content-Type": "application/json",
+                   "Accept": "application/octet-stream"})
+      with urllib.request.urlopen(req, timeout=120) as resp:
+        check(resp.status == 200, f"/render answered {resp.status}")
+        shape = tuple(int(x) for x in resp.headers["X-Image-Shape"].split(","))
+        return np.frombuffer(resp.read(), "<f4").reshape(shape)
+
+    poses = [pan_pose(4.0 * i - 6.0, 0.02 * i, -0.01 * i) for i in range(4)]
+    zero()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+      served = list(pool.map(lambda a: post(*a), [
+          (sid, p) for sid in old for p in poses]))
+    counts = read("serve")
+    check(counts["render_mpi_fused"] > 0, "serving launched no kernel")
+    for (sid, p), frame in zip([(s, p) for s in old for p in poses], served):
+      check(frame.shape == (cfg.data.img_size, cfg.data.img_size, 3)
+            and bool(np.isfinite(frame).all()), "bad served frame")
+      check(np.array_equal(frame, direct(old[sid], p)),
+            f"served frame of {sid} differs from a direct kernel render")
+    log(f"bridge: {len(served)} served frames of the baked scenes "
+        "bit-identical to direct kernel renders")
+
+    # -- live reload: publish a newer step while requests stream --------
+    old_hash = {(sid, j): hashlib.sha1(direct(old[sid], p).tobytes())
+                .hexdigest() for sid in old for j, p in enumerate(poses)}
+    reload_at: dict = {}
+    new: dict = {}
+
+    def reload_cb(new_step: int) -> None:
+      reload_at["start"] = time.perf_counter()
+      reload_at["published_ago_s"] = time.time() - os.path.getmtime(
+          os.path.join(ckpt, f"step_{new_step:010d}"))
+      fresh, fresh_info = export.scenes_from_checkpoint(
+          ckpt, dataset_path=data, scenes=2, stable_ids=True, device=dev)
+      new.update({sid: s for sid, *s in fresh})
+      reload_at["swap"] = time.perf_counter()
+      svc.swap_scenes(new, prebake=True)
+      reload_at["end"] = time.perf_counter()
+      reload_at["step"] = fresh_info["step"]
+
+    records: list = []
+    failures: list = []
+    stop = threading.Event()
+
+    def client(c):
+      i = c
+      while not stop.is_set():
+        sid, j = f"ckpt_{i % 2:03d}", (i // 2) % len(poses)
+        i += 1
+        t_start = time.perf_counter()
+        try:
+          frame = post(sid, poses[j])
+        except Exception as e:  # noqa: BLE001 - every failure is counted
+          failures.append(repr(e))
+          continue
+        records.append((t_start, time.perf_counter(), sid, j,
+                        hashlib.sha1(frame.tobytes()).hexdigest()))
+
+    watcher = CheckpointWatcher(CheckpointStore(ckpt), reload_cb,
+                                poll_s=0.1, initial_step=step,
+                                log=log).start()
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(RELOAD_CLIENTS)]
+    t_stream = time.perf_counter()
+    for t in clients:
+      t.start()
+    time.sleep(2.0)
+    zero()
+    t_train = time.perf_counter()
+    resumed = cli.cmd_train(cli.build_parser().parse_args([
+        "train", "--synthetic", "--synthetic-scenes", "2", "--epochs", "3",
+        "--no-valid", "--device", TRAIN_DEVICE, "--resume", "--save-every", "2",
+        "--dataset", os.path.join(workdir, "data_two"), "--ckpt", ckpt]))
+    torch.cuda.synchronize()
+    t_trained = time.perf_counter()
+    deadline = time.perf_counter() + 120
+    while "end" not in reload_at and time.perf_counter() < deadline:
+      time.sleep(0.05)
+    time.sleep(1.0)
+    stop.set()
+    for t in clients:
+      t.join(60)
+    counts = read("reload")
+    snap = watcher.snapshot()
+    watcher.stop()
+    watcher = None
+    log(f"bridge: resumed {json.dumps(resumed['ckpt'])}; watcher "
+        f"{json.dumps(snap)}; {len(records)} requests, "
+        f"{len(failures)} failed")
+    check(resumed["ckpt"]["resumed_from"] == step
+          and resumed["ckpt"]["final_step"] == step + 2,
+          f"resume for the reload: {resumed['ckpt']}")
+    check(counts["rewarp_composite_vjp"] == counts["adjoint_warp"] == 2,
+          f"the 2 resumed steps launched A/B {counts}")
+    check(snap["reloads"] == 1 and snap["reload_errors"] == 0
+          and snap["seen_step"] == step + 2 == reload_at.get("step"),
+          f"the watcher did not fire once on step {step + 2}: {snap}")
+    check(not failures, f"requests failed during the reload: {failures[:3]}")
+    new_hash = {(sid, j): hashlib.sha1(direct(new[sid], p).tobytes())
+                .hexdigest() for sid in new for j, p in enumerate(poses)}
+    check(all(new_hash[k] != old_hash[k] for k in old_hash),
+          "the new bake renders the old frames")
+    n_new = 0
+    for t_start, _, sid, j, h in records:
+      check(h in (old_hash[sid, j], new_hash[sid, j]),
+            f"a frame of {sid} is neither the old nor the new bake's")
+      if t_start > reload_at["end"]:
+        check(h == new_hash[sid, j],
+              f"a request after the swap rendered the old {sid}")
+      n_new += h == new_hash[sid, j]
+    check(n_new > 0, "no frame of the new bake was served")
+    first_new = min(t_end for _, t_end, sid, j, h in records
+                    if h == new_hash[sid, j])
+
+    def rate(lo, hi):
+      n = sum(1 for _, t_end, *_ in records if lo <= t_end < hi)
+      return n / (hi - lo) if hi > lo else None
+
+    reload_times = {
+        "renders_per_s_before": rate(t_stream + 0.5, t_train),
+        "renders_per_s_training": rate(t_train, t_trained),
+        "renders_per_s_reload": rate(reload_at["start"], reload_at["end"]),
+        "reload_ms": (reload_at["end"] - reload_at["start"]) * 1e3,
+        "bake_in_reload_ms": (reload_at["swap"] - reload_at["start"]) * 1e3,
+        "swap_prebake_ms": (reload_at["end"] - reload_at["swap"]) * 1e3,
+        "swap_to_first_new_frame_ms": (first_new - reload_at["swap"]) * 1e3,
+        "publish_to_reload_start_ms": reload_at["published_ago_s"] * 1e3,
+        "requests": len(records), "new_frames": n_new,
+        "train_resume_s": t_trained - t_train}
+    log(f"bridge: live reload {json.dumps(reload_times)}")
+
+    # -- tiled swap: only the changed tiles re-bake ---------------------
+    tsvc = RenderService(device=dev, method="pallas", tile="auto",
+                         convention=Convention.EXACT, max_batch=8,
+                         max_wait_ms=5.0)
+    tsvc.add_scene("ckpt_000", *old["ckpt_000"])
+    for p in poses:
+      tsvc.render("ckpt_000", p, timeout=120)
+    grid = tsvc.tile_meta("ckpt_000").grid
+    patched = old["ckpt_000"][0].copy()
+    y0, y1, x0, x1 = grid.rect(0, 0)
+    patched[y0:y1, x0:x1] = new["ckpt_000"][0][y0:y1, x0:x1]
+    swapped = (patched,) + tuple(old["ckpt_000"][1:])
+    before = tsvc.stats()["tile_cache"]
+    zero()
+    tsvc.swap_scenes({"ckpt_000": swapped}, prebake=True)
+    tiled_frames = [tsvc.render("ckpt_000", p, timeout=120) for p in poses]
+    counts = read("tiled_swap")
+    after = tsvc.stats()["tile_cache"]
+    log(f"bridge: tiled swap on a {grid.rows}x{grid.cols} grid of "
+        f"{grid.tile} px: tile cache {json.dumps(before)} -> "
+        f"{json.dumps(after)}")
+    check(counts["over_composite_pallas"] > 0,
+          "the tiled swap's renders launched no compose kernel")
+    check(after["misses"] - before["misses"] == 1
+          and after["invalidations"] - before["invalidations"] == 1,
+          "a one-tile swap did not re-bake exactly one tile")
+    for p, frame in zip(poses, tiled_frames):
+      check(np.array_equal(frame, direct(swapped, p, "pallas")),
+            "a tiled frame after the swap differs from a direct render")
+    tsvc.close()
+    tsvc = None
+
+    # -- 480 px x 33 planes from a step-0 checkpoint -------------------
+    cfg480 = config.TrainConfig.scaled_480()
+    state480 = cfg480.make_train_state(0, dev)
+    t0 = time.perf_counter()
+    CheckpointStore(os.path.join(workdir, "ckpt480")).save(
+        0, train_loop.checkpoint_tree(state480),
+        meta={"model": cfg480.model_meta()})
+    save480_ms = (time.perf_counter() - t0) * 1e3
+    del state480
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, meta480, _ = export.restore_params(os.path.join(workdir, "ckpt480"),
+                                          device=dev)
+    torch.cuda.synchronize()
+    restore480_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    (scene480,), _ = export.scenes_from_checkpoint(
+        os.path.join(workdir, "ckpt480"), scenes=1, prefix="ckpt480",
+        device=dev)
+    bake480_ms = (time.perf_counter() - t0) * 1e3
+    check(scene480[1].shape == (480, 480, 33, 4), f"{scene480[1].shape}")
+
+    # -- --mpi-dir: the repo's baked PNG stack ---------------------------
+    mpi_scene = cli.mpi_dir_scene(
+        os.path.join(ROOT, "tests", "fixtures", "scene_009"))
+    check(mpi_scene[0] == "scene_009" and mpi_scene[1].shape[2] == 10,
+          f"--mpi-dir loaded {mpi_scene[0]} {mpi_scene[1].shape}")
+    for sid, *scene in (scene480, mpi_scene):
+      svc.add_scene(sid, *scene)
+    zero()
+    extra = {(sid, j): post(sid, p) for sid in (scene480[0], "scene_009")
+             for j, p in enumerate(poses[:2])}
+    counts = read("serve_480_and_mpi_dir")
+    check(counts["render_mpi_fused"] > 0, "no kernel launch")
+    for (sid, j), frame in extra.items():
+      scene = scene480[1:] if sid == scene480[0] else mpi_scene[1:]
+      check(bool(np.isfinite(frame).all())
+            and np.array_equal(frame, direct(scene, poses[j])),
+            f"served {sid} differs from a direct kernel render")
+    log(f"bridge: 480 px x 33 planes (step-0 checkpoint of "
+        f"{meta480['num_planes']} planes: save {save480_ms:.1f} ms, "
+        f"params-only restore {restore480_ms:.1f} ms, bake "
+        f"{bake480_ms:.1f} ms) and scene_009 {mpi_scene[1].shape} served "
+        "bit-identical to direct kernel renders")
+
+    # -- the viewer --------------------------------------------------------
+    out = os.path.join(workdir, "viewer.html")
+    t0 = time.perf_counter()
+    summary = cli.cmd_export_viewer(cli.build_parser().parse_args([
+        "export-viewer", "--mpi-dir",
+        os.path.join(ROOT, "tests", "fixtures", "scene_009"),
+        "--out", out]))
+    viewer_ms = (time.perf_counter() - t0) * 1e3
+    with open(out) as fh:
+      page = fh.read()
+    parser = html.parser.HTMLParser()
+    parser.feed(page)
+    parser.close()
+    start = page.index("const embeddedSources = ") + len(
+        "const embeddedSources = ")
+    sources = json.loads(page[start:page.index("\n", start)].rstrip(";"))
+    check(summary["layers"] == 10 and len(sources) == 10 and all(
+        base64.b64decode(s.split(",", 1)[1])[:8] == b"\x89PNG\r\n\x1a\n"
+        for s in sources), "the viewer does not embed 10 PNG layers")
+    viewer_bytes = os.path.getsize(out)
+    log(f"bridge: export-viewer {json.dumps(summary)} in {viewer_ms:.1f} "
+        f"ms, {viewer_bytes} bytes")
+
+    # -- --bf16 -------------------------------------------------------------
+    zero()
+    bf16 = cli.cmd_train(cli.build_parser().parse_args([
+        "train", "--synthetic", "--synthetic-scenes", "2", "--epochs", "1",
+        "--no-valid", "--device", TRAIN_DEVICE, "--bf16",
+        "--dataset", os.path.join(workdir, "data_two"),
+        "--ckpt", os.path.join(workdir, "bf16")]))
+    torch.cuda.synchronize()
+    counts = read("bf16_train")
+    bf16_store = CheckpointStore(os.path.join(workdir, "bf16"))
+    bf16_ckpt = bf16_store.restore()
+    check(bf16["steps"] == 2 and bf16["nonfinite_losses"] == 0,
+          f"--bf16 run: {bf16}")
+    check(counts["render_mpi_fused"] == counts["rewarp_composite_vjp"]
+          == counts["adjoint_warp"] == 2, f"--bf16 steps' launches {counts}")
+    check(bf16_ckpt.meta["model"]["compute_dtype"] == "bfloat16"
+          and all(a.dtype == np.float32 for k, a in bf16_ckpt.arrays.items()
+                  if k.startswith("['model']")),
+          "the --bf16 checkpoint's meta or params")
+    # The step's time, f32 and bf16 in turns (cuDNN as without --ckpt).
+    torch.backends.cudnn.deterministic = False
+    batch = next(realestate.iterate_batches(
+        config.DataConfig(dataset_path=os.path.join(
+            workdir, "data_two")).make_dataset(
+                rng=np.random.default_rng(0), device=dev),
+        rng=np.random.default_rng(1)))
+    steps = {}
+    for name in ("float32", "bfloat16"):
+      c = config.TrainConfig(
+          compute_dtype=None if name == "float32" else name)
+      st = c.make_train_state(0, dev)
+      fn = c.make_train_step(c.make_vgg(dev))
+      steps[name] = (st, fn)
+    step_ms = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+      st, fn = steps[name]
+
+      def one_step():
+        fn(st, batch)
+        torch.cuda.synchronize()
+
+      for _ in range(3):
+        one_step()
+      step_ms[name].append(host_ms(one_step, 10))
+    log(f"bridge: --bf16 run {json.dumps(bf16)}; step ms f32 and bf16 in "
+        f"turns {json.dumps(step_ms)}")
+  finally:
+    if watcher is not None:
+      watcher.stop()
+    if httpd is not None:
+      httpd.shutdown()
+      httpd.server_close()
+    for s in (svc, tsvc):
+      if s is not None:
+        s.close()
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+  return {
+      "launches": launches,
+      "params_restore_ms": restore_ms,
+      "params_bytes_read": params_bytes, "checkpoint_bytes": ckpt_bytes,
+      "bake_ms_per_scene_224_x10": bake_ms,
+      "bake_max_abs_err_vs_cpu": bake_err,
+      "live_reload": reload_times,
+      "tiled_grid": [grid.rows, grid.cols, grid.tile],
+      "save_ms_480_x33": save480_ms,
+      "params_restore_ms_480_x33": restore480_ms,
+      "bake_ms_480_x33": bake480_ms,
+      "viewer_ms": viewer_ms, "viewer_bytes": viewer_bytes,
+      "train_step_ms": step_ms,
+  }
+
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -1621,10 +2084,16 @@ def main() -> int:
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- 10. crash-safe training: the slice's main path ------------------------
+  # -- 11. train -> serve -> viewer over phase 10's store: the slice's path --
   with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
     resil = phase10_resilience(torch, dev, workdir)
-  log(json.dumps({"times_resilience": {
-      "card": card, **resil,
+    log(json.dumps({"times_resilience": {
+        "card": card, **resil,
+        "seconds_total": time.perf_counter() - t_start}}))
+    t0 = time.perf_counter()
+    bridge = phase11_bridge(torch, dev, workdir)
+  log(json.dumps({"times_bridge": {
+      "card": card, **bridge, "phase_s": time.perf_counter() - t0,
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- result lines --------------------------------------------------------
@@ -1661,6 +2130,14 @@ def main() -> int:
                "ms": c8["ms"], "plain_ms": c8["plain_ms"],
                "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
                "library_ms": None})
+  counters = {"render_fused": "render_mpi_fused",
+              "rewarp_composite_vjp": "rewarp_composite_vjp",
+              "adjoint_warp": "adjoint_warp",
+              "over_composite": "over_composite_pallas"}
+  for row in rows:
+    row["phase11_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in bridge["launches"].items()}
   print(json.dumps({"kernels": [
       {"name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
        "replaces": REPLACES[row["name"]][0],

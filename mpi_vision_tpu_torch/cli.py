@@ -7,13 +7,19 @@
     (``--device cuda``, the default) or, when asked, the CPU. ``--lr-find``
     sweeps the learning rate first; with ``--ckpt`` the run is crash-safe
     (ckpt/: atomic checkpoints, NaN rollback, preemption saves, bit-exact
-    ``--resume``).
+    ``--resume``); ``--bf16`` runs the U-Net and VGG convs in bfloat16;
+    ``--export-html`` writes the viewer of a validation MPI.
+  * ``export-viewer`` — bake a PNG MPI directory (e.g. the repo's
+    ``tests/fixtures/scene_009``) into the self-contained HTML viewer.
   * ``serve`` — run the batched render-serving subsystem (serve/): scene
     cache + micro-batching scheduler + HTTP front end (``/render``,
-    ``/healthz``, ``/stats``, ``/debug/traces``) over synthetic scenes, on
-    the card (``--device cuda``, the default) or, when asked, the CPU;
-    ``--tiled`` serves tile-granular scenes (serve/tiles.py) through the
-    warp and the CUDA compose kernel (``--method pallas``).
+    ``/healthz``, ``/stats``, ``/debug/traces``) over synthetic scenes, a
+    baked PNG MPI directory (``--mpi-dir``), or MPIs predicted by a trained
+    checkpoint (``--ckpt``, the train -> serve bridge; ``--reload-ckpt-s``
+    swaps in newer checkpoints live), on the card (``--device cuda``, the
+    default) or, when asked, the CPU; ``--tiled`` serves tile-granular
+    scenes (serve/tiles.py) through the warp and the CUDA compose kernel
+    (``--method pallas``).
 
 Prints a one-line JSON summary on stdout (diagnostics on stderr).
 """
@@ -106,12 +112,20 @@ def cmd_train(args: argparse.Namespace) -> dict:
     _log(f"synthesized dataset at {root}")
   elif root is None:
     raise SystemExit("--dataset is required (or pass --synthetic)")
+  if args.export_html:
+    # Fail before the training, not after: the export needs a non-empty
+    # test split.
+    test_dir = os.path.join(root, "RealEstate10K", "test")
+    if not (os.path.isdir(test_dir) and os.listdir(test_dir)):
+      raise SystemExit(
+          f"--export-html needs a non-empty test split at {test_dir}")
 
   cfg = config.TrainConfig(
       data=config.DataConfig(dataset_path=root, img_size=args.img_size,
                              num_planes=args.num_planes),
       learning_rate=args.lr, epochs=args.epochs,
-      vgg_resize=args.vgg_resize if args.vgg_resize > 0 else None)
+      vgg_resize=args.vgg_resize if args.vgg_resize > 0 else None,
+      compute_dtype="bfloat16" if args.bf16 else None)
   cfg.set_precision()
   if args.ckpt and device.type == "cuda":
     # Bit-exact resume needs a step whose bits do not depend on the run:
@@ -124,7 +138,8 @@ def cmd_train(args: argparse.Namespace) -> dict:
   vgg = cfg.make_vgg(device) if args.vgg_loss else None
   method = "fused_pallas" if args.planned_render else "fused"
   _log(f"train: {cfg.data.img_size}px x {cfg.data.num_planes} planes on "
-       f"{device}, render method {method}, cuDNN TF32 "
+       f"{device}, render method {method}, convs in "
+       f"{cfg.compute_dtype or 'float32'}, cuDNN TF32 "
        f"{torch.backends.cudnn.allow_tf32}, cuDNN deterministic "
        f"{torch.backends.cudnn.deterministic}")
   dataset = None
@@ -270,6 +285,20 @@ def cmd_train(args: argparse.Namespace) -> dict:
     raise SystemExit(
         "no training steps ran: check --epochs and that the dataset has at "
         "least batch_size scenes")
+
+  if args.export_html:
+    from mpi_vision_tpu_torch.models.stereo_mag import mpi_from_net_output
+    from mpi_vision_tpu_torch.viewer import export
+
+    example = cfg.data.make_dataset(is_valid=True, device=device)[0]
+    with torch.no_grad():
+      pred = state.model(example["net_input"][None])
+      rgba = mpi_from_net_output(pred, example["ref_img"][None])
+    export.export_viewer_html(
+        rgba[0].cpu().numpy(), args.export_html,
+        near=cfg.data.depth_near, far=cfg.data.depth_far)
+    _log(f"viewer exported to {args.export_html}")
+
   return {
       "command": "train",
       **({"lr_found": lr_found} if lr_found is not None else {}),
@@ -294,6 +323,39 @@ def cmd_train(args: argparse.Namespace) -> dict:
   }
 
 
+def cmd_export_viewer(args: argparse.Namespace) -> dict:
+  from mpi_vision_tpu_torch.viewer import export
+
+  mpi = export.load_fixture_mpi(args.mpi_dir, prefix=args.prefix)
+  out = export.export_viewer_html(
+      mpi, args.out, near=args.near, far=args.far, fov_deg=args.fov)
+  return {
+      "command": "export-viewer",
+      "layers": int(mpi.shape[2]),
+      "size": [int(mpi.shape[0]), int(mpi.shape[1])],
+      "out": out,
+  }
+
+
+def mpi_dir_scene(mpi_dir: str, prefix: str = "rgba_", near: float = 1.0,
+                  far: float = 100.0, fov: float = 60.0) -> tuple:
+  """``serve --mpi-dir``'s scene: the PNG stack as ``(scene_id, rgba [H,
+  W, P, 4], depths [P], intrinsics [3, 3])``, named after the directory,
+  with planes at ``inv_depths(near, far, P)`` and a pinhole of horizontal
+  field of view ``fov`` degrees (``fx = fy = 0.5 W / tan(fov / 2)``)."""
+  import numpy as np
+
+  from mpi_vision_tpu_torch.core.camera import intrinsics_matrix, inv_depths
+  from mpi_vision_tpu_torch.viewer import export
+
+  mpi = export.load_fixture_mpi(mpi_dir, prefix=prefix)
+  h, w, p = mpi.shape[0], mpi.shape[1], mpi.shape[2]
+  fx = 0.5 * w / np.tan(np.radians(fov) / 2.0)
+  k = intrinsics_matrix(fx, fx, w / 2.0, h / 2.0).numpy()
+  return (os.path.basename(os.path.normpath(mpi_dir)), mpi,
+          inv_depths(near, far, p).numpy(), k)
+
+
 def cmd_serve(args: argparse.Namespace) -> dict:
   import signal
   import threading
@@ -301,6 +363,19 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   from mpi_vision_tpu_torch.core.sampling import Convention
   from mpi_vision_tpu_torch.serve import RenderService, make_http_server
 
+  if not args.ckpt:
+    # These flags only act through the checkpoint bridge; silently
+    # serving synthetic scenes instead would drop the trained MPIs asked
+    # for.
+    wants_ckpt = [flag for flag, on in (
+        ("--ckpt-scenes", args.ckpt_scenes is not None),
+        ("--ckpt-dataset", bool(args.ckpt_dataset)),
+        ("--reload-ckpt-s", args.reload_ckpt_s > 0)) if on]
+    if wants_ckpt:
+      raise SystemExit(f"{', '.join(wants_ckpt)} require(s) --ckpt <dir>")
+  if args.ckpt_scenes is not None and args.ckpt_scenes < 1:
+    # 0 would come up healthy serving no checkpoint scene at all.
+    raise SystemExit(f"--ckpt-scenes must be >= 1, got {args.ckpt_scenes}")
   if args.max_inflight == "auto":
     max_inflight: int | str = "auto"
   else:
@@ -339,12 +414,67 @@ def cmd_serve(args: argparse.Namespace) -> dict:
         convention=convention, device=args.device, max_queue=args.max_queue)
   except ValueError as e:  # a method that cannot render tile crops
     raise SystemExit(str(e)) from None
-  ids = svc.add_synthetic_scenes(
-      args.scenes, height=args.img_size, width=args.img_size,
-      planes=args.num_planes)
-  _log(f"serve: {len(ids)} synthetic scenes "
-       f"[{args.img_size}x{args.img_size}x{args.num_planes}] on "
-       f"{svc.engine.device}, method {svc.engine.method}, tile {svc.tile}")
+  if args.mpi_dir:
+    scene_id, mpi, depths, k = mpi_dir_scene(
+        args.mpi_dir, args.prefix, args.near, args.far, args.fov)
+    svc.add_scene(scene_id, mpi, depths, k)
+    _log(f"serve: loaded MPI scene {scene_id!r} "
+         f"[{mpi.shape[0]}x{mpi.shape[1]}x{mpi.shape[2]}]")
+  watcher = None
+  if args.ckpt:
+    # The train -> serve bridge: restore the checkpoint, run the forward
+    # pass on the serving device, bake the predicted MPIs as scenes. With
+    # --reload-ckpt-s the ids are stable across steps, so later reloads
+    # swap scenes in place under the ids clients already hold.
+    from mpi_vision_tpu_torch.ckpt.export import scenes_from_checkpoint
+
+    ckpt_dir = os.path.abspath(args.ckpt)
+    live_reload = args.reload_ckpt_s > 0
+    n_ckpt_scenes = args.ckpt_scenes if args.ckpt_scenes is not None else 2
+
+    def bake():
+      return scenes_from_checkpoint(
+          ckpt_dir, dataset_path=args.ckpt_dataset or None,
+          scenes=n_ckpt_scenes, stable_ids=live_reload, log=_log,
+          device=svc.engine.device)
+
+    try:
+      ckpt_scenes, ckpt_info = bake()
+    except FileNotFoundError as e:
+      svc.close()
+      raise SystemExit(str(e)) from None
+    for sid, rgba, depths, k in ckpt_scenes:
+      svc.add_scene(sid, rgba, depths, k)
+    _log(f"serve: {len(ckpt_scenes)} scene(s) from checkpoint step "
+         f"{ckpt_info['step']} (params {ckpt_info['params_digest'][:8]})")
+    if live_reload:
+      # Watch the store, re-bake, swap in place: in-flight requests finish
+      # on the scenes they hold (ckpt/watch.py, RenderService.swap_scenes).
+      # A failed reload is logged and retried; the old scenes keep serving.
+      from mpi_vision_tpu_torch.ckpt import CheckpointStore, CheckpointWatcher
+
+      def reload(step: int) -> None:
+        new_scenes, new_info = bake()
+        swapped = svc.swap_scenes(
+            {sid: (rgba, depths, k) for sid, rgba, depths, k in new_scenes},
+            prebake=True)
+        _log(f"serve: live-reloaded {len(swapped)} scene(s) from "
+             f"checkpoint step {new_info['step']} "
+             f"(params {new_info['params_digest'][:8]})")
+
+      watcher = CheckpointWatcher(
+          CheckpointStore(ckpt_dir), reload, poll_s=args.reload_ckpt_s,
+          initial_step=ckpt_info["step"], log=_log).start()
+      _log(f"serve: watching {args.ckpt} for new checkpoints every "
+           f"{args.reload_ckpt_s:g}s")
+  if not args.mpi_dir and not args.ckpt:
+    ids = svc.add_synthetic_scenes(
+        args.scenes, height=args.img_size, width=args.img_size,
+        planes=args.num_planes)
+    _log(f"serve: {len(ids)} synthetic scenes "
+         f"[{args.img_size}x{args.img_size}x{args.num_planes}]")
+  _log(f"serve: {len(svc.scene_ids())} scene(s) on {svc.engine.device}, "
+       f"method {svc.engine.method}, tile {svc.tile}")
   if args.warmup:
     # Build the kernel and allocate the pinned buffers before traffic.
     svc.warmup()
@@ -380,6 +510,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   try:
     stop_event.wait(args.duration if args.duration > 0 else None)
   finally:
+    if watcher is not None:
+      watcher.stop()  # no reload may start while the service drains
     httpd.shutdown()  # stop accepting; in-flight handler threads finish
     httpd.server_close()
     stats = svc.stats()
@@ -408,6 +540,7 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       "errors": stats["errors"],
       "rejected": stats["rejected"],
       "pipeline": stats["pipeline"],
+      **({"ckpt_reload": watcher.snapshot()} if watcher is not None else {}),
   }
 
 
@@ -444,6 +577,11 @@ def build_parser() -> argparse.ArgumentParser:
                       "--no-planned-render uses the plain per-plane loop "
                       "(method fused). On by default, unlike the JAX CLI: "
                       "the kernels need no per-batch plan")
+  t.add_argument("--bf16", action=argparse.BooleanOptionalAction,
+                 default=False,
+                 help="run the U-Net and VGG-loss convs in bfloat16 "
+                      "(parameters, optimizer state, render and loss stay "
+                      "f32)")
   t.add_argument("--valid", action=argparse.BooleanOptionalAction,
                  default=True,
                  help="evaluate the test split's fixed triplets each epoch")
@@ -485,7 +623,20 @@ def build_parser() -> argparse.ArgumentParser:
                       "crash@step=N[,hard] / nan@step=N / preempt@step=N "
                       "/ hang@step=N,seconds=S / crash@save=I,stage=... / "
                       "corrupt@save=I; requires --ckpt")
+  t.add_argument("--export-html", default="",
+                 help="after training, write a viewer HTML of the first "
+                      "validation MPI here")
   t.set_defaults(fn=cmd_train)
+
+  e = sub.add_parser("export-viewer",
+                     help="bake a PNG MPI directory into the HTML viewer")
+  e.add_argument("--mpi-dir", required=True)
+  e.add_argument("--prefix", default="rgba_")
+  e.add_argument("--out", required=True)
+  e.add_argument("--near", type=float, default=1.0)
+  e.add_argument("--far", type=float, default=100.0)
+  e.add_argument("--fov", type=float, default=60.0)
+  e.set_defaults(fn=cmd_export_viewer)
 
   s = sub.add_parser(
       "serve", help="run the batched MPI render-serving subsystem")
@@ -498,9 +649,39 @@ def build_parser() -> argparse.ArgumentParser:
   s.add_argument("--duration", type=float, default=0.0,
                  help="seconds to serve; <= 0 runs until interrupted")
   s.add_argument("--scenes", type=int, default=4,
-                 help="synthetic scene count")
+                 help="synthetic scene count (ignored with --mpi-dir or "
+                      "--ckpt)")
   s.add_argument("--img-size", type=int, default=256)
   s.add_argument("--num-planes", type=int, default=16)
+  s.add_argument("--mpi-dir", default="",
+                 help="serve a baked PNG MPI directory (scene id = its "
+                      "name)")
+  s.add_argument("--ckpt", default="",
+                 help="serve MPIs predicted by a trained checkpoint (a "
+                      "train --ckpt store of either package): restores the "
+                      "params, runs the forward pass on the serving device "
+                      "and bakes the predictions as scenes (combinable "
+                      "with --mpi-dir)")
+  s.add_argument("--ckpt-scenes", type=int, default=None,
+                 help="examples to bake from the --ckpt forward pass "
+                      "(default 2); requires --ckpt")
+  s.add_argument("--ckpt-dataset", default="",
+                 help="RealEstate10K-layout root feeding the --ckpt "
+                      "forward pass (default: procedural synthetic); "
+                      "requires --ckpt")
+  s.add_argument("--reload-ckpt-s", type=float, default=0.0,
+                 help="poll --ckpt for a newly published step every this "
+                      "many seconds and swap the baked scenes in place "
+                      "without dropping in-flight requests (stable scene "
+                      "ids; <= 0 disables; requires --ckpt)")
+  s.add_argument("--prefix", default="rgba_",
+                 help="--mpi-dir layer file prefix")
+  s.add_argument("--near", type=float, default=1.0,
+                 help="--mpi-dir nearest plane depth")
+  s.add_argument("--far", type=float, default=100.0,
+                 help="--mpi-dir farthest plane depth")
+  s.add_argument("--fov", type=float, default=60.0,
+                 help="--mpi-dir horizontal field of view, degrees")
   s.add_argument("--max-batch", type=int, default=8,
                  help="micro-batch cap per device dispatch")
   s.add_argument("--max-wait-ms", type=float, default=3.0,

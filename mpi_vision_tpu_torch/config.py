@@ -6,9 +6,12 @@ Adam at lr 2e-4 for 20 epochs, VGG-perceptual loss with resize 224, the
 U-Net with InstanceNorm. ``TrainConfig.scaled_480()`` is the larger
 configuration the reference mentions (480 px, 33 planes).
 
-The step is f32. PyTorch lets cuDNN run f32 convolutions in TF32 by
-default; the trainer turns that off with ``TrainConfig.set_precision``.
-Nothing here changes global state on import.
+The step is f32 unless ``compute_dtype="bfloat16"`` (``train --bf16``):
+then the U-Net's and the VGG loss's convs compute in bf16 while the
+parameters, Adam's state, the render and the loss stay f32. PyTorch lets
+cuDNN run f32 convolutions in TF32 by default; the trainer turns that off
+with ``TrainConfig.set_precision``. Nothing here changes global state on
+import.
 """
 
 from __future__ import annotations
@@ -17,6 +20,18 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+def dtype_of(compute_dtype: str | None) -> torch.dtype | None:
+  """A ``compute_dtype`` name (a manifest's, or ``TrainConfig``'s, such
+  as ``"bfloat16"``) as a torch dtype; None stays None (f32)."""
+  if compute_dtype is None:
+    return None
+  dtype = getattr(torch, str(compute_dtype), None)
+  if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+    raise ValueError(f"compute_dtype must name a floating torch dtype, got "
+                     f"{compute_dtype!r}")
+  return dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +71,9 @@ class TrainConfig:
   epochs: int = 20
   vgg_resize: int | None = 224
   norm: str | None = "instance"
+  # "bfloat16": the U-Net and VGG convs compute in bf16; parameters,
+  # optimizer state and outputs stay f32.
+  compute_dtype: str | None = None
 
   @classmethod
   def scaled_480(cls) -> "TrainConfig":
@@ -68,6 +86,11 @@ class TrainConfig:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+  @property
+  def torch_dtype(self) -> torch.dtype | None:
+    """``compute_dtype`` as a torch dtype (None = f32)."""
+    return dtype_of(self.compute_dtype)
+
   def make_train_state(self, seed: int = 0,
                        device: "str | torch.device | None" = None):
     """The U-Net and Adam on ``device`` (see ``train.loop``)."""
@@ -75,7 +98,8 @@ class TrainConfig:
 
     return create_train_state(
         seed, num_planes=self.data.num_planes,
-        learning_rate=self.learning_rate, norm=self.norm, device=device)
+        learning_rate=self.learning_rate, norm=self.norm, device=device,
+        dtype=self.torch_dtype)
 
   def model_meta(self) -> dict:
     """The manifest ``model`` block: what a checkpoint's arrays were
@@ -84,6 +108,7 @@ class TrainConfig:
         "num_planes": self.data.num_planes,
         "img_size": self.data.img_size,
         "norm": self.norm,
+        "compute_dtype": self.compute_dtype,
         "depth_near": self.data.depth_near,
         "depth_far": self.data.depth_far,
     }
@@ -96,7 +121,7 @@ class TrainConfig:
     from mpi_vision_tpu_torch.device import resolve_device
     from mpi_vision_tpu_torch.train.vgg import VGG16Features
 
-    return VGG16Features().to(resolve_device(device))
+    return VGG16Features(dtype=self.torch_dtype).to(resolve_device(device))
 
   def make_train_step(self, vgg=None, method: str = "fused_pallas"):
     """The Adam step with the reference loss (``vgg=None``: the L2 metric

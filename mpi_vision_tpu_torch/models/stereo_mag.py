@@ -15,6 +15,14 @@ as ``norm_type``, which fastai only matches against its enum, so the
 notebook's trained network has no norm layers. ``norm=None`` reproduces
 that; ``norm="instance"`` (the default) gives the paper's InstanceNorm.
 
+Mixed precision (``dtype=torch.bfloat16``, ``train --bf16``): the JAX
+package's flax ``dtype=`` layout, with explicit casts rather than
+``torch.autocast`` (whose op lists decide casts differently): each conv
+casts its input, weights and bias to bf16 and computes there; the
+InstanceNorm statistics and affine are taken in f32 and cast back; the
+parameters stay f32 and the network's output is cast to f32, so the render
+and its kernels stay f32.
+
 Weights carry across from the JAX package with
 ``state_dict_from_jax_params`` (the inverse of its
 ``params_from_torch_state``).
@@ -27,17 +35,21 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 
 class ConvBlock(nn.Module):
   """conv -> [InstanceNorm2d] -> activation, torch padding semantics: ks=3
   convs pad by ``dilation``, the ks=4/s=2 transpose conv pads by 1 (doubling
-  the spatial size exactly), the ks=1 head pads 0."""
+  the spatial size exactly), the ks=1 head pads 0. ``dtype`` (None = f32)
+  is the conv's computation dtype; the parameters stay f32."""
 
   def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                dilation: int = 1, transpose: bool = False,
-               norm: str | None = "instance", act: str | None = "relu"):
+               norm: str | None = "instance", act: str | None = "relu",
+               dtype: torch.dtype | None = None):
     super().__init__()
+    self.dtype = dtype
     if transpose:
       self.conv = nn.ConvTranspose2d(cin, cout, kernel, stride=stride,
                                      padding=1)
@@ -57,12 +69,28 @@ class ConvBlock(nn.Module):
     self.act = acts[act]
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    x = self.conv(x)
-    if self.norm is not None:
-      x = self.norm(x)
+    if self.dtype is None:
+      x = self.conv(x)
+      if self.norm is not None:
+        x = self.norm(x)
+    else:
+      x = self._conv_cast(x.to(self.dtype))
+      if self.norm is not None:
+        # Statistics and affine in f32, as flax's norm layers take them.
+        x = self.norm(x.float()).to(self.dtype)
     if self.act is not None:
       x = self.act(x)
     return x
+
+  def _conv_cast(self, x: torch.Tensor) -> torch.Tensor:
+    """The conv with its weights and bias cast to ``x``'s dtype."""
+    conv = self.conv
+    w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+      return F.conv_transpose2d(x, w, b, stride=conv.stride,
+                                padding=conv.padding)
+    return F.conv2d(x, w, b, stride=conv.stride, padding=conv.padding,
+                    dilation=conv.dilation)
 
 
 class StereoMagnificationModel(nn.Module):
@@ -71,36 +99,40 @@ class StereoMagnificationModel(nn.Module):
   Input ``[B, H, W, 3 + 3P]`` (reference image ++ P-plane PSV of the source
   image, NHWC), output ``[B, H, W, 3 + 2P]`` in (-1, 1): P blend-weight
   channels, P alpha channels, 3 background-RGB channels. H and W must be
-  divisible by 8.
+  divisible by 8. ``dtype=torch.bfloat16`` runs every conv in bf16 (see the
+  module docstring); the output is f32 either way.
   """
 
-  def __init__(self, num_planes: int = 10, norm: str | None = "instance"):
+  def __init__(self, num_planes: int = 10, norm: str | None = "instance",
+               dtype: torch.dtype | None = None):
     super().__init__()
     ngf = 3 + num_planes * 3
     nout = 3 + num_planes * 2
     self.num_planes = num_planes
+    self.dtype = dtype
     n = norm
-    self.cnv1_1 = ConvBlock(ngf, ngf, norm=n)
-    self.cnv1_2 = ConvBlock(ngf, ngf * 2, stride=2, norm=n)
-    self.cnv2_1 = ConvBlock(ngf * 2, ngf * 2, norm=n)
-    self.cnv2_2 = ConvBlock(ngf * 2, ngf * 4, stride=2, norm=n)
-    self.cnv3_1 = ConvBlock(ngf * 4, ngf * 4, norm=n)
-    self.cnv3_2 = ConvBlock(ngf * 4, ngf * 4, norm=n)
-    self.cnv3_3 = ConvBlock(ngf * 4, ngf * 8, stride=2, norm=n)
-    self.cnv4_1 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n)
-    self.cnv4_2 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n)
-    self.cnv4_3 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n)
+    self.cnv1_1 = ConvBlock(ngf, ngf, norm=n, dtype=dtype)
+    self.cnv1_2 = ConvBlock(ngf, ngf * 2, stride=2, norm=n, dtype=dtype)
+    self.cnv2_1 = ConvBlock(ngf * 2, ngf * 2, norm=n, dtype=dtype)
+    self.cnv2_2 = ConvBlock(ngf * 2, ngf * 4, stride=2, norm=n, dtype=dtype)
+    self.cnv3_1 = ConvBlock(ngf * 4, ngf * 4, norm=n, dtype=dtype)
+    self.cnv3_2 = ConvBlock(ngf * 4, ngf * 4, norm=n, dtype=dtype)
+    self.cnv3_3 = ConvBlock(ngf * 4, ngf * 8, stride=2, norm=n, dtype=dtype)
+    self.cnv4_1 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n, dtype=dtype)
+    self.cnv4_2 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n, dtype=dtype)
+    self.cnv4_3 = ConvBlock(ngf * 8, ngf * 8, dilation=2, norm=n, dtype=dtype)
     self.cnv5_1 = ConvBlock(ngf * 16, ngf * 4, kernel=4, stride=2,
-                            transpose=True, norm=n)
-    self.cnv5_2 = ConvBlock(ngf * 4, ngf * 4, norm=n)
-    self.cnv5_3 = ConvBlock(ngf * 4, ngf * 4, norm=n)
+                            transpose=True, norm=n, dtype=dtype)
+    self.cnv5_2 = ConvBlock(ngf * 4, ngf * 4, norm=n, dtype=dtype)
+    self.cnv5_3 = ConvBlock(ngf * 4, ngf * 4, norm=n, dtype=dtype)
     self.cnv6_1 = ConvBlock(ngf * 8, ngf * 2, kernel=4, stride=2,
-                            transpose=True, norm=n)
-    self.cnv6_2 = ConvBlock(ngf * 2, ngf * 2, norm=n)
+                            transpose=True, norm=n, dtype=dtype)
+    self.cnv6_2 = ConvBlock(ngf * 2, ngf * 2, norm=n, dtype=dtype)
     self.cnv7_1 = ConvBlock(ngf * 4, nout, kernel=4, stride=2,
-                            transpose=True, norm=n)
-    self.cnv7_2 = ConvBlock(nout, nout, norm=n)
-    self.cnv8_1 = ConvBlock(nout, nout, kernel=1, norm=None, act="tanh")
+                            transpose=True, norm=n, dtype=dtype)
+    self.cnv7_2 = ConvBlock(nout, nout, norm=n, dtype=dtype)
+    self.cnv8_1 = ConvBlock(nout, nout, kernel=1, norm=None, act="tanh",
+                            dtype=dtype)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     x = x.permute(0, 3, 1, 2)
@@ -111,7 +143,7 @@ class StereoMagnificationModel(nn.Module):
     c5_3 = self.cnv5_3(self.cnv5_2(self.cnv5_1(torch.cat([c4_3, c3_3], 1))))
     c6_2 = self.cnv6_2(self.cnv6_1(torch.cat([c5_3, c2_2], 1)))
     c7_2 = self.cnv7_2(self.cnv7_1(torch.cat([c6_2, c1_2], 1)))
-    return self.cnv8_1(c7_2).permute(0, 2, 3, 1)
+    return self.cnv8_1(c7_2).permute(0, 2, 3, 1).float()
 
 
 def mpi_from_net_output(mpi_pred: torch.Tensor,

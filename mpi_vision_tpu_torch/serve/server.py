@@ -22,15 +22,16 @@ threaded stdlib ``http.server`` front end:
                    ``traceparent``'s trace-id is honoured).
 
 Scenes register host-side (``add_scene``) and bake lazily through the LRU
-cache on first request. With ``tile=`` (``serve --tiled``) every scene is
-split into a fixed tile grid (serve/tiles.py): a request renders only the
-frustum-touched crop with content-free planes culled, through
-``method="pallas"`` (the warp, then the CUDA compose kernel), bit-exact to
-the untiled render; the baked cache holds tiles, and a bounded memo holds
-assembled crops. 404 for unknown scenes, 400 for malformed
-requests, 503 when the scheduler sheds load or the circuit breaker is
-open; handler threads block on the scheduler future, so HTTP concurrency
-turns into micro-batch coalescing on the device.
+cache on first request; ``swap_scenes`` replaces registered scenes in place
+under live traffic (``serve --reload-ckpt-s``). With ``tile=`` (``serve
+--tiled``) every scene is split into a fixed tile grid (serve/tiles.py): a
+request renders only the frustum-touched crop with content-free planes
+culled, through ``method="pallas"`` (the warp, then the CUDA compose
+kernel), bit-exact to the untiled render; the baked cache holds tiles, and
+a bounded memo holds assembled crops. 404 for unknown scenes, 400 for
+malformed requests, 503 when the scheduler sheds load or the circuit
+breaker is open; handler threads block on the scheduler future, so HTTP
+concurrency turns into micro-batch coalescing on the device.
 """
 
 from __future__ import annotations
@@ -319,6 +320,49 @@ class RenderService:
     if changed:
       self._purge_crop_memo(sid)
     return changed
+
+  def swap_scenes(self, scenes: dict, prebake: bool = False) -> list[str]:
+    """Atomically publish new host data for ``scenes`` (live checkpoint
+    reload, ``serve --reload-ckpt-s``).
+
+    ``scenes`` maps scene id -> ``(rgba_layers, depths, intrinsics)``.
+    The registry updates first, under the scene lock, then the baked
+    cache invalidates the swapped ids — so a request that raced the swap
+    renders either the old bake or the new one, never a mix, and no
+    in-flight request is dropped: futures already holding a
+    ``BakedScene`` render it to completion, and the old device buffers
+    free when the last reference drops. A tiled service re-publishes
+    through ``_publish_tiled``, which invalidates only the tiles whose
+    digests changed. ``prebake=True`` bakes the swapped scenes (only the
+    changed tiles, when tiled) before returning, so the first post-swap
+    request does not pay the bake. Returns the swapped ids.
+
+    The JAX package's version also invalidates its CPU-fallback cache and
+    edge frame cache and emits swap events; the port has none of those
+    modules yet.
+    """
+    entries = {
+        str(sid): (np.asarray(rgba, np.float32),
+                   np.asarray(depths, np.float32),
+                   np.asarray(k, np.float32))
+        for sid, (rgba, depths, k) in scenes.items()}
+    swapped = sorted(entries)
+    if self.tile is not None:
+      changed = {sid: self._publish_tiled(sid, entry)
+                 for sid, entry in entries.items()}
+      if prebake:
+        for sid, tiles in changed.items():
+          if tiles:
+            self._get_scene(sid)
+      return swapped
+    with self._scene_lock:
+      self._scene_data.update(entries)
+    for sid in entries:
+      self.cache.invalidate(sid)
+    if prebake:
+      for sid in entries:
+        self._get_scene(sid)
+    return swapped
 
   def _purge_crop_memo(self, sid: str) -> None:
     with self._crop_lock:

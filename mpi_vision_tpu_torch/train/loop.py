@@ -61,15 +61,18 @@ class TrainState:
 def create_train_state(seed: int = 0, num_planes: int = 10,
                        learning_rate: float = 2e-4,
                        norm: str | None = "instance",
-                       device: "str | torch.device | None" = None
-                       ) -> TrainState:
+                       device: "str | torch.device | None" = None,
+                       dtype: torch.dtype | None = None) -> TrainState:
   """A fresh model (PyTorch's default init drawn under ``seed``, leaving
   the global generator as it was) and Adam at ``learning_rate``, on
-  ``device`` (default the card; raises without one unless ``"cpu"``)."""
+  ``device`` (default the card; raises without one unless ``"cpu"``).
+  ``dtype`` is the U-Net's conv computation dtype (None = f32); its
+  parameters are f32 either way."""
   device = resolve_device(device)
   with torch.random.fork_rng(devices=[]):
     torch.manual_seed(seed)
-    model = StereoMagnificationModel(num_planes=num_planes, norm=norm)
+    model = StereoMagnificationModel(num_planes=num_planes, norm=norm,
+                                     dtype=dtype)
   model.to(device)
   return TrainState(model=model, optimizer=_adam(model, learning_rate))
 

@@ -30,6 +30,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 # torchvision vgg16.features up to relu4_3 (features[:23]); "M" = max pool.
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512]
@@ -60,9 +61,15 @@ _CONV_INDICES = _conv_indices()
 class VGG16Features(nn.Sequential):
   """``vgg16().features[:23]``: call on NCHW input, get the four taps
   (NCHW) as a list. Its parameters are frozen (no gradient), while the
-  gradient still flows through to the input."""
+  gradient still flows through to the input.
 
-  def __init__(self, state_dict: Mapping[str, torch.Tensor] | None = None):
+  ``dtype=torch.bfloat16`` (``train --bf16``) runs the convs in bf16 with
+  their weights cast (the parameters stay f32) and returns the taps in
+  f32, so the loss's L1 terms accumulate at full precision, as the JAX
+  package's ``VGG16Features(dtype=...)`` does."""
+
+  def __init__(self, state_dict: Mapping[str, torch.Tensor] | None = None,
+               dtype: torch.dtype | None = None):
     layers: list[nn.Module] = []
     cin = 3
     for c in _CFG:
@@ -75,13 +82,20 @@ class VGG16Features(nn.Sequential):
     self.load_state_dict(default_params() if state_dict is None
                          else state_dict)
     self.requires_grad_(False)
+    self.dtype = dtype
 
   def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    if self.dtype is not None:
+      x = x.to(self.dtype)
     taps = []
     for i, layer in enumerate(self):
-      x = layer(x)
+      if self.dtype is not None and isinstance(layer, nn.Conv2d):
+        x = F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
+                     padding=layer.padding)
+      else:
+        x = layer(x)
       if i in _TAP_INDICES:
-        taps.append(x)
+        taps.append(x.float())
         if i == _TAP_INDICES[-1]:
           break
     return taps

@@ -81,6 +81,15 @@ def test_scan_covers_the_resilience_slice():
     assert name in mods
 
 
+def test_scan_covers_the_train_serve_viewer_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.ckpt.export",
+               "mpi_vision_tpu_torch.ckpt.watch",
+               "mpi_vision_tpu_torch.viewer",
+               "mpi_vision_tpu_torch.viewer.export"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
