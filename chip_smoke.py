@@ -112,7 +112,9 @@ Phases:
      ``rgba`` within 1e-4 of the U-Net's plain CPU forward with the same
      weights. A ``RenderService(method="fused_pallas", convention=EXACT)``
      behind ``make_http_server`` serves them under stable ids, every frame
-     bit-identical to a direct kernel render. Live reload: a
+     bit-identical to a direct kernel render. Every frame this phase
+     serves is also held to ``plain_render`` on the same baked planes and
+     homographies (TOL), between the counted windows. Live reload: a
      ``CheckpointWatcher`` (``serve --reload-ckpt-s``'s callback) watches
      the store while 4 clients stream ``POST /render``; ``cmd_train
      --resume`` publishes step 14 (2 steps, kernels A and B once each); the
@@ -1377,6 +1379,24 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
         baked.depths, baked.intrinsics, convention=Convention.EXACT,
         method=method)[0].cpu().numpy()
 
+  plain_errs: dict = {}
+
+  def hold_plain(name, frame, scene, pose):
+    """Hold a frame to ``plain_render`` of the same scene, baked on the
+    card, at the same pose's homographies (TOL). Runs between the counted
+    windows, so those still see no plain version."""
+    baked = bake_scene("plain", *scene, device=dev)
+    h, w = baked.planes.shape[1:3]
+    homs = render_fused.pixel_homographies(
+        torch.from_numpy(pose[None]).to(dev), baked.depths,
+        baked.intrinsics[None], h, w,
+        Convention.EXACT).transpose(0, 1).contiguous()
+    want = render_fused.plain_render(baked.planes, homs)[0].cpu().numpy()
+    err = float(np.abs(frame - want).max())
+    plain_errs[name] = max(plain_errs.get(name, 0.0), err)
+    check(err <= TOL, f"{name}: a frame differs from the plain version by "
+          f"{err} > {TOL}")
+
   ckpt = os.path.join(workdir, "clean")
   data = os.path.join(workdir, "data_clean")
   cfg = config.TrainConfig()
@@ -1473,8 +1493,10 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
             and bool(np.isfinite(frame).all()), "bad served frame")
       check(np.array_equal(frame, direct(old[sid], p)),
             f"served frame of {sid} differs from a direct kernel render")
+      hold_plain("serve_224_x10", frame, old[sid], p)
     log(f"bridge: {len(served)} served frames of the baked scenes "
-        "bit-identical to direct kernel renders")
+        "bit-identical to direct kernel renders; vs plain max_abs_err "
+        f"{plain_errs['serve_224_x10']:.3e}")
 
     # -- live reload: publish a newer step while requests stream --------
     old_hash = {(sid, j): hashlib.sha1(direct(old[sid], p).tobytes())
@@ -1556,6 +1578,9 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
                 .hexdigest() for sid in new for j, p in enumerate(poses)}
     check(all(new_hash[k] != old_hash[k] for k in old_hash),
           "the new bake renders the old frames")
+    for sid in new:
+      for p in poses:
+        hold_plain("reload_224_x10", direct(new[sid], p), new[sid], p)
     n_new = 0
     for t_start, _, sid, j, h in records:
       check(h in (old_hash[sid, j], new_hash[sid, j]),
@@ -1614,6 +1639,10 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
     for p, frame in zip(poses, tiled_frames):
       check(np.array_equal(frame, direct(swapped, p, "pallas")),
             "a tiled frame after the swap differs from a direct render")
+      hold_plain("tiled_swap_224_x10", frame, swapped, p)
+    log(f"bridge: reloaded and tiled frames vs plain max_abs_err "
+        f"{plain_errs['reload_224_x10']:.3e} and "
+        f"{plain_errs['tiled_swap_224_x10']:.3e}")
     tsvc.close()
     tsvc = None
 
@@ -1656,11 +1685,15 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
       check(bool(np.isfinite(frame).all())
             and np.array_equal(frame, direct(scene, poses[j])),
             f"served {sid} differs from a direct kernel render")
+      hold_plain("serve_480_x33" if sid == scene480[0]
+                 else "serve_scene_009", frame, scene, poses[j])
     log(f"bridge: 480 px x 33 planes (step-0 checkpoint of "
         f"{meta480['num_planes']} planes: save {save480_ms:.1f} ms, "
         f"params-only restore {restore480_ms:.1f} ms, bake "
         f"{bake480_ms:.1f} ms) and scene_009 {mpi_scene[1].shape} served "
-        "bit-identical to direct kernel renders")
+        "bit-identical to direct kernel renders; vs plain max_abs_err "
+        f"{plain_errs['serve_480_x33']:.3e} and "
+        f"{plain_errs['serve_scene_009']:.3e}")
 
     # -- the viewer --------------------------------------------------------
     out = os.path.join(workdir, "viewer.html")
@@ -1744,6 +1777,7 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
      torch.backends.cudnn.benchmark) = flags
   return {
       "launches": launches,
+      "frames_vs_plain_max_abs_err": plain_errs,
       "params_restore_ms": restore_ms,
       "params_bytes_read": params_bytes, "checkpoint_bytes": ckpt_bytes,
       "bake_ms_per_scene_224_x10": bake_ms,

@@ -69,15 +69,11 @@ class ConvBlock(nn.Module):
     self.act = acts[act]
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    if self.dtype is None:
-      x = self.conv(x)
-      if self.norm is not None:
-        x = self.norm(x)
-    else:
-      x = self._conv_cast(x.to(self.dtype))
-      if self.norm is not None:
-        # Statistics and affine in f32, as flax's norm layers take them.
-        x = self.norm(x.float()).to(self.dtype)
+    dt = self.dtype or torch.float32
+    x = self._conv_cast(x.to(dt))
+    if self.norm is not None:
+      # Statistics and affine in f32, as flax's norm layers take them.
+      x = self.norm(x.float()).to(dt)
     if self.act is not None:
       x = self.act(x)
     return x

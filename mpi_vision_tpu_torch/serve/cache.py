@@ -105,6 +105,9 @@ class SceneCache:
     self.misses = 0
     self.evictions = 0
     self.invalidations = 0
+    # Per-key generation, moved by every invalidation: a bake that began
+    # before an invalidation of its key must not insert after it.
+    self._gens: dict[str, int] = {}
 
   def get(self, scene_id: str) -> BakedScene | None:
     with self._lock:
@@ -118,20 +121,36 @@ class SceneCache:
 
   def put(self, scene: BakedScene) -> None:
     with self._lock:
-      old = self._scenes.pop(scene.scene_id, None)
-      if old is not None:
-        self._bytes -= old.nbytes
-      self._scenes[scene.scene_id] = scene
-      self._bytes += scene.nbytes
-      self._evict_locked()
+      self._insert_locked(scene)
+
+  def _insert_locked(self, scene: BakedScene) -> None:
+    old = self._scenes.pop(scene.scene_id, None)
+    if old is not None:
+      self._bytes -= old.nbytes
+    self._scenes[scene.scene_id] = scene
+    self._bytes += scene.nbytes
+    self._evict_locked()
 
   def get_or_bake(self, scene_id: str, bake) -> BakedScene:
-    """Cached scene, or ``bake()``'s result inserted (miss accounted)."""
-    scene = self.get(scene_id)
-    if scene is not None:
-      return scene
+    """Cached scene, or ``bake()``'s result inserted (miss accounted).
+
+    The result is inserted only if ``scene_id`` was not invalidated while
+    ``bake()`` ran. A caller that re-registers a scene's data first and
+    invalidates its id second (``RenderService.swap_scenes``) so keeps a
+    bake that read the old data out of the cache: that bake serves only
+    the request that made it, and the next request bakes the new data."""
+    with self._lock:
+      scene = self._scenes.get(scene_id)
+      if scene is not None:
+        self._scenes.move_to_end(scene_id)
+        self.hits += 1
+        return scene
+      self.misses += 1
+      gen = self._gens.setdefault(scene_id, 0)
     scene = bake()
-    self.put(scene)
+    with self._lock:
+      if self._gens.get(scene_id) == gen:
+        self._insert_locked(scene)
     return scene
 
   def invalidate(self, scene_id: str) -> bool:
@@ -139,6 +158,8 @@ class SceneCache:
     device memory frees once the last reference drops. Returns whether
     the id was resident."""
     with self._lock:
+      if scene_id in self._gens:
+        self._gens[scene_id] += 1
       scene = self._scenes.pop(scene_id, None)
       if scene is None:
         return False
@@ -150,6 +171,9 @@ class SceneCache:
     """Drop every entry whose key starts with ``prefix`` (a tiled
     scene's whole tile set). Returns the number of entries dropped."""
     with self._lock:
+      for key in self._gens:
+        if key.startswith(prefix):
+          self._gens[key] += 1
       keys = [k for k in self._scenes if k.startswith(prefix)]
       for key in keys:
         self._bytes -= self._scenes.pop(key).nbytes

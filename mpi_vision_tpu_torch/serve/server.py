@@ -331,7 +331,10 @@ class RenderService:
     renders either the old bake or the new one, never a mix, and no
     in-flight request is dropped: futures already holding a
     ``BakedScene`` render it to completion, and the old device buffers
-    free when the last reference drops. A tiled service re-publishes
+    free when the last reference drops. A bake that read the old data
+    and finishes after the invalidation serves only its own request:
+    ``SceneCache.get_or_bake`` keeps it out of the cache, so no later
+    request renders the old scene. A tiled service re-publishes
     through ``_publish_tiled``, which invalidates only the tiles whose
     digests changed. ``prebake=True`` bakes the swapped scenes (only the
     changed tiles, when tiled) before returning, so the first post-swap

@@ -85,11 +85,10 @@ class VGG16Features(nn.Sequential):
     self.dtype = dtype
 
   def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-    if self.dtype is not None:
-      x = x.to(self.dtype)
+    x = x.to(self.dtype or torch.float32)
     taps = []
     for i, layer in enumerate(self):
-      if self.dtype is not None and isinstance(layer, nn.Conv2d):
+      if isinstance(layer, nn.Conv2d):
         x = F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype),
                      padding=layer.padding)
       else:

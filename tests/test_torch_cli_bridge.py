@@ -141,3 +141,47 @@ def test_serve_mpi_dir_and_live_reloading_ckpt_until_sigterm(tmp_path):
   assert seen["watchers"] == ["mpi-ckpt-watch"]
   assert not any(t.name == "mpi-ckpt-watch" for t in threading.enumerate())
   assert signal.getsignal(signal.SIGTERM) is handler   # restored
+
+
+def test_train_export_html_is_the_viewer_of_the_trained_model(tmp_path):
+  """``train --export-html`` writes the viewer of valid[0]'s MPI as the
+  trained network predicts it: the same bytes as ``export_viewer_html``
+  of the forward pass of the params the run's last checkpoint holds."""
+  import torch
+
+  from mpi_vision_tpu_torch import config as tconfig
+  from mpi_vision_tpu_torch.ckpt.export import restore_params
+  from mpi_vision_tpu_torch.models.stereo_mag import mpi_from_net_output
+  from mpi_vision_tpu_torch.viewer import export as texport
+
+  data, ckpt = tmp_path / "data", tmp_path / "ckpt"
+  html = tmp_path / "viewer.html"
+  summary = cli.cmd_train(cli.build_parser().parse_args([
+      "train", "--synthetic", "--synthetic-scenes", "2", "--img-size",
+      str(HW), "--num-planes", str(P), "--epochs", "1", "--no-valid",
+      "--no-vgg-loss", "--device", "cpu", "--dataset", str(data),
+      "--ckpt", str(ckpt), "--export-html", str(html)]))
+  model, meta, step = restore_params(str(ckpt), device="cpu")
+  assert step == summary["steps"] >= 1
+  dcfg = tconfig.DataConfig(dataset_path=str(data), img_size=HW,
+                            num_planes=P)
+  example = dcfg.make_dataset(is_valid=True, device="cpu")[0]
+  with torch.no_grad():
+    rgba = mpi_from_net_output(model(example["net_input"][None]),
+                               example["ref_img"][None])[0].numpy()
+  want = texport.export_viewer_html(rgba, str(tmp_path / "want.html"),
+                                    near=dcfg.depth_near, far=dcfg.depth_far)
+  got = html.read_bytes()
+  assert got.count(b"data:image/png;base64,") == P
+  assert got == open(want, "rb").read()
+
+
+def test_train_export_html_refuses_an_empty_test_split_before_training(
+    tmp_path):
+  root = tmp_path / "data"
+  (root / "RealEstate10K" / "test").mkdir(parents=True)
+  with pytest.raises(SystemExit, match="needs a non-empty test split"):
+    cli.cmd_train(cli.build_parser().parse_args([
+        "train", "--dataset", str(root), "--device", "cpu",
+        "--export-html", str(tmp_path / "v.html")]))
+  assert not (tmp_path / "v.html").exists()

@@ -15,6 +15,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 
 from mpi_vision_tpu_torch.ckpt import CheckpointStore, CheckpointWatcher
 from mpi_vision_tpu_torch.serve import RenderService, synthetic_scene
@@ -231,6 +232,53 @@ def test_swap_scenes_prebake_leaves_no_cold_first_request():
     stats = svc.cache.stats()
     assert stats["misses"] == misses_after_swap
     assert stats["hits"] >= 1
+
+
+@pytest.mark.parametrize("prebake", [False, True])
+def test_a_bake_that_read_the_old_data_does_not_outlive_the_swap(
+    monkeypatch, prebake):
+  """A request misses the cache and its bake reads the old registry entry;
+  the swap lands while that bake runs. The racing request may serve the
+  old scene, but its bake must not enter the cache after the swap's
+  invalidation (or over the swap's prebake): every later request serves
+  the new data."""
+  from mpi_vision_tpu_torch.serve import cache as cache_mod
+
+  old = synthetic_scene("s", H, W, P, seed=0)
+  new = synthetic_scene("s", H, W, P, seed=99)
+  want = {}
+  for name, scene in (("old", old), ("new", new)):
+    with _service() as fresh:
+      fresh.add_scene("s", *scene)
+      want[name] = fresh.render("s", _pose())
+
+  real_bake = cache_mod.bake_scene
+  entered, release = threading.Event(), threading.Event()
+  slow = [True]
+
+  def slow_bake(*args, **kw):
+    if slow[0]:          # the first bake: it already holds the old entry
+      slow[0] = False
+      entered.set()
+      assert release.wait(30)
+    return real_bake(*args, **kw)
+
+  monkeypatch.setattr(cache_mod, "bake_scene", slow_bake)
+  with _service() as svc:
+    svc.add_scene("s", *old)
+    raced = []
+    racer = threading.Thread(
+        target=lambda: raced.append(svc.render("s", _pose(), timeout=60)),
+        daemon=True)
+    racer.start()
+    assert entered.wait(30)
+    svc.swap_scenes({"s": new}, prebake=prebake)
+    release.set()
+    racer.join(60)
+    assert not racer.is_alive()
+    np.testing.assert_array_equal(raced[0], want["old"])
+    for _ in range(2):
+      np.testing.assert_array_equal(svc.render("s", _pose()), want["new"])
 
 
 def test_tiled_swap_rebakes_only_the_changed_tiles():
