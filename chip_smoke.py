@@ -133,7 +133,36 @@ Phases:
      restore, bake (224 x 10 and 480 x 33), renders/s before, during the
      training and during the reload, swap -> first new frame, export-viewer
      and the step in f32 and bf16 in turns.
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+ 12. serving under faults and overload (the slice's main path), 1080p x 32,
+     ``Convention.EXACT``, behind ``make_http_server``; every window zeroes
+     the launch counts and the plain versions' counts (by device) just
+     before and reads them just after, and no plain version runs on the
+     card in any. (a) Fault drill: a ``FaultyEngine``-wrapped
+     ``fused_pallas`` service with ``cpu_fallback="on"`` and a watchdog of
+     twice a CPU frame (timed first): injected transient errors open the
+     breaker, at most 4 requests are served by the CPU fallback, each
+     within 1e-4 of a direct kernel render, while ``/healthz`` reads
+     ``degraded``; after ``breaker_reset_s`` the probe goes to the card,
+     the breaker closes and frames are bit-identical to direct kernel
+     renders again; a hang is abandoned by the watchdog and retried on the
+     card; a bake fault on a cold scene is retried. No request fails; the
+     events hold the breaker transitions; ``plain_render`` ran on the CPU
+     exactly once per fallback dispatch. (d) ``GET /debug/profile
+     ?seconds=1`` during a burst writes a Chrome trace naming the render
+     kernel and the ``render/*`` ranges; a second capture at the same time
+     gets 409. (b) Edge cache: a miss launches the kernel, repeats are
+     hits, ``If-None-Match`` -> 304, a near pose is warped on the card
+     (within 1e-4 of the CPU warp) with no render, far poses miss; kernel
+     launches equal misses; p50 latency of each kind and the warp's device
+     time. (c) Brownout on phase 9's tiled scene, with a ladder clock the
+     phase drives: L0 -> L4 and back; L0 frames bit-identical to the
+     untiled ``pallas`` service's, L1 to a direct render of the thinned
+     planes, L2 and L3 to a direct half-resolution render of them followed
+     by ``upsample_nearest``; at L4 interactive and background requests
+     get 503 with ``Retry-After``; the compose kernel launches; renders/s
+     at L0, L1 and L2.
+Then the ``{"kernels": [...]}`` line (each row with its launches in
+phase 11's and phase 12's windows), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +180,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1792,6 +1822,497 @@ def phase11_bridge(torch, dev, workdir: str) -> dict:
   }
 
 
+# Phase 12: breaker reset between the drill's probes (s), and the edge
+# cache's lattice at 1080p (scene units and degrees).
+DRILL_RESET_S = 1.0
+EDGE = dict(trans_cell=0.02, rot_bucket_deg=2.0, warp_max_trans=0.06,
+            warp_max_rot_deg=4.0, byte_budget=1 << 30)
+
+
+def drill_scene():
+  """Phase 12's 1080 x 1920 x 32 ``synthetic_scene`` (host numpy, made on
+  ``main``'s scene thread while earlier phases run)."""
+  from mpi_vision_tpu_torch.serve import synthetic_scene
+
+  return synthetic_scene("drill_000", HEIGHT, WIDTH, PLANES, seed=12)
+
+
+def fetch(port: int, scene_id: str, pose, headers=None):
+  """``POST /render`` (octet-stream) -> ``(status, headers, frame)``; the
+  frame is None for an answer without pixels (304, 503)."""
+  body = json.dumps({"scene_id": scene_id, "pose": pose.tolist()}).encode()
+  req = urllib.request.Request(
+      f"http://127.0.0.1:{port}/render", data=body,
+      headers={"Content-Type": "application/json",
+               "Accept": "application/octet-stream", **(headers or {})})
+  try:
+    with urllib.request.urlopen(req, timeout=300) as resp:
+      data = resp.read()
+      hdrs = dict(resp.headers.items())
+      shape = tuple(int(x) for x in hdrs["X-Image-Shape"].split(","))
+      return resp.status, hdrs, np.frombuffer(data, "<f4").reshape(shape)
+  except urllib.error.HTTPError as e:
+    with e:
+      return e.code, dict(e.headers.items()), None
+
+
+def get_json(port: int, path: str):
+  try:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+      return resp.status, json.loads(resp.read())
+  except urllib.error.HTTPError as e:
+    with e:
+      return e.code, json.loads(e.read() or b"{}")
+
+
+def phase12_degraded(torch, dev, drill, tscene, workdir: str) -> dict:
+  """Serving under faults and overload (see the module docstring).
+  ``drill`` is ``drill_scene()``'s, ``tscene`` phase 9's tiled scene."""
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.serve import (
+      BrownoutConfig,
+      BrownoutController,
+      EdgeConfig,
+      Fault,
+      FaultyEngine,
+      RenderEngine,
+      RenderService,
+      ResilienceConfig,
+      make_http_server,
+  )
+  from mpi_vision_tpu_torch.serve import tiles as tiles_mod
+  from mpi_vision_tpu_torch.serve.cache import bake_scene
+  from mpi_vision_tpu_torch.serve.edge import warp as edge_warp
+  from mpi_vision_tpu_torch.serve.engine import upsample_nearest
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, co.plain_composite,
+            rb.plain_rewarp_composite_vjp, rb.plain_adjoint_warp)
+  by_device = (render_fused.plain_render, co.plain_composite)
+  launches: dict = {}
+
+  def zero():
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+    for fn in by_device:
+      fn.by_device = {"cpu": 0, "cuda": 0}
+
+  def read(name: str) -> tuple[dict, dict]:
+    """The counts since ``zero()`` as window ``name``. No plain version
+    may have run on the card; outside the drill none may have run at all
+    (the drill's CPU runs are returned for the caller to hold to the
+    fallback's dispatches)."""
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    cpu = {fn.__name__: fn.by_device["cpu"] for fn in by_device}
+    card = {fn.__name__: fn.by_device["cuda"] for fn in by_device}
+    launches[name] = counts
+    log(f"degraded [{name}]: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}, on the CPU {json.dumps(cpu)}")
+    check(not any(card.values()), f"{name}: a plain version ran on the "
+          f"card: {card}")
+    if name != "drill":
+      check(not any(plain.values()) and not any(cpu.values()),
+            f"{name}: a plain version ran: {plain}, on the CPU {cpu}")
+    return plain, cpu
+
+  def direct(baked, pose, method="fused_pallas", **kw):
+    """A direct render of one pose of a baked scene on the card."""
+    return render.render_views(
+        baked.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+        baked.depths, baked.intrinsics, convention=Convention.EXACT,
+        method=method, **kw)[0].cpu().numpy()
+
+  comp_errs: dict = {}
+
+  def plain_ref(baked, pose, k_t, hw, label):
+    """``direct(baked, pose, method="pallas", ...)`` with the compose
+    kernel's plain version: the same warp stack composited by
+    ``plain_composite``. The kernel is held to it on that stack."""
+    homs = render.plane_homographies(
+        torch.from_numpy(pose[None]).to(dev), baked.depths,
+        baked.intrinsics[None],
+        tgt_intrinsics=None if k_t is None else k_t[None])
+    warped = render.warp_stack(baked.planes[:, None], homs, *hw,
+                               Convention.EXACT)
+    want = co.plain_composite(warped)
+    err = float((co.over_composite_pallas(warped) - want).abs().max())
+    comp_errs[label] = err
+    check(err <= TOL, f"{label}: the compose kernel is off its plain "
+          f"version by {err} on {tuple(warped.shape)}")
+    return want[0].cpu().numpy()
+
+  out: dict = {}
+  t_phase = time.perf_counter()
+  services, servers = [], []
+
+  def serve(svc):
+    services.append(svc)
+    httpd = make_http_server(svc, port=0)
+    servers.append(httpd)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd.server_address[1]
+
+  try:
+    # -- (a) fault drill: the CPU fallback while the breaker is open ------
+    # The fallback engine's frame time sets the watchdog: a CPU frame must
+    # finish inside it, a hang must not.
+    fb_engine = RenderEngine(method="fused_pallas",
+                             convention=Convention.EXACT, device="cpu")
+    poses = [pan_pose(0.5 * i, 0.004 * i, -0.002 * i) for i in range(6)]
+    # A first CPU render pays one-off start-up costs: take them on a tiny
+    # scene, then time one full frame.
+    fb_engine.render_batch(bake_scene("tiny", *(a[:8, :8] if a.ndim == 4
+                                                else a for a in drill),
+                                      device="cpu"), poses[1][None])
+    cpu_scene = bake_scene("drill_000", *drill, device="cpu")
+    t0 = time.perf_counter()
+    cpu_frame = fb_engine.render_batch(cpu_scene, poses[1][None])[0]
+    cpu_frame_ms = (time.perf_counter() - t0) * 1e3
+    del cpu_scene
+    watchdog_s = max(2.0 * cpu_frame_ms / 1e3 + 2.0, 6.0)
+    eng = FaultyEngine(RenderEngine(method="fused_pallas",
+                                    convention=Convention.EXACT,
+                                    device="cuda", max_inflight=8))
+    svc = RenderService(
+        engine=eng, cpu_fallback="on", fallback_engine=fb_engine,
+        resilience=ResilienceConfig(
+            max_retries=2, backoff_base_s=0.01, breaker_threshold=2,
+            breaker_reset_s=DRILL_RESET_S, watchdog_s=watchdog_s),
+        max_batch=4, max_wait_ms=5.0, cache_bytes=6 << 30,
+        profile_dir=os.path.join(workdir, "profiles"))
+    svc.add_scene("drill_000", *drill)
+    svc.warmup()
+    check(svc.prebake_fallback(1) == ["drill_000"], "fallback prebake")
+    port = serve(svc)
+    baked = svc.cache.get("drill_000")
+    want = [direct(baked, p) for p in poses[:5]]
+    card_frame_ms = host_ms(
+        lambda: svc.engine.render_batch(baked, poses[1][None]), 5)
+    fallback_err = float(np.abs(cpu_frame - want[1]).max())
+    log(f"degraded: CPU fallback frame {cpu_frame_ms:.1f} ms vs the card's "
+        f"{card_frame_ms:.2f} ms (engine render_batch, host clock); CPU vs "
+        f"card max_abs_err {fallback_err:.3e}; watchdog {watchdog_s:.1f} s")
+    check(fallback_err <= TOL, f"CPU fallback frame off by {fallback_err}")
+
+    zero()
+    t_drill = time.perf_counter()
+    status, _, f0 = fetch(port, "drill_000", poses[0])
+    check(status == 200 and np.array_equal(f0, want[0]),
+          "healthy frame differs from a direct kernel render")
+    eng.schedule = lambda idx: Fault("error")  # the card is down
+    fb_frames = []
+    status, _, f1 = fetch(port, "drill_000", poses[1])
+    check(status == 200, f"a request failed during the outage: {status}")
+    fb_frames.append(f1)
+    _, health = get_json(port, "/healthz")
+    check(health["status"] == "degraded" and health["fallback_active"],
+          f"healthz during the outage: {health}")
+    fb_frames.append(svc.render("drill_000", poses[2], timeout=300))
+    fb_renders = svc.metrics.fallback_renders
+    eng.schedule = None  # the card is back
+    time.sleep(svc.resilient.breaker.retry_after_s() + 0.05)
+    status, _, f3 = fetch(port, "drill_000", poses[3])  # the probe
+    check(status == 200 and np.array_equal(f3, want[3]),
+          "after the outage a frame differs from a direct kernel render")
+    _, health = get_json(port, "/healthz")
+    check(health["status"] == "ok" and not health["fallback_active"]
+          and health["breaker"]["state"] == "closed",
+          f"the card did not take the traffic back: {health}")
+    t0 = time.perf_counter()
+    eng.inject(Fault("hang", seconds=600.0))
+    status, _, f4 = fetch(port, "drill_000", poses[4])
+    hang_s = time.perf_counter() - t0
+    eng.release.set()
+    check(status == 200 and np.array_equal(f4, want[4]),
+          "the retry after a hang differs from a direct kernel render")
+    svc.add_scene("cold_000", *tscene)
+    eng.fail_next_bake(1)
+    status, _, f5 = fetch(port, "cold_000", poses[5])
+    check(status == 200, f"the cold scene's request failed: {status}")
+    drill_s = time.perf_counter() - t_drill
+    plain, cpu = read("drill")
+    check(np.array_equal(f5, direct(svc.cache.get("cold_000"), poses[5])),
+          "the cold scene's frame differs from a direct kernel render")
+    fb_errs = [float(np.abs(f - w).max()) for f, w in zip(fb_frames,
+                                                          want[1:3])]
+    stats = svc.stats()
+    events = [(e["old"], e["new"]) for e in
+              svc.events.snapshot(kind="breaker", recent=64)["events"]]
+    log(f"degraded: drill {drill_s:.1f} s, hang cost {hang_s:.1f} s; "
+        f"fallback renders {stats['resilience']['fallback_renders']} "
+        f"(max_abs_err vs kernel {max(fb_errs):.3e}); injected "
+        f"{json.dumps(eng.injected)}; breaker {events}; errors "
+        f"{stats['errors']}; watchdog trips "
+        f"{stats['resilience']['watchdog_trips']}")
+    check(launches["drill"]["render_mpi_fused"] > 0, "drill: no launch")
+    check(1 <= fb_renders <= 4 and stats["resilience"]["fallback_renders"]
+          == fb_renders, f"fallback renders {fb_renders}")
+    check(plain["plain_render"] == cpu["plain_render"] == fb_renders,
+          f"plain renders {plain} != fallback dispatches {fb_renders}")
+    check(max(fb_errs) <= TOL, f"a fallback frame is off by {max(fb_errs)}")
+    check(not any(stats["errors"].values()), f"errors {stats['errors']}")
+    check(events[0] == ("closed", "open") and events[-1] == (
+        "half_open", "closed"), f"breaker transitions {events}")
+    check(stats["resilience"]["watchdog_trips"] >= 1
+          and eng.injected["hang"] == 1 and eng.injected["bake"] == 1,
+          "the hang or the bake fault did not fire")
+    out["drill"] = {"cpu_fallback_frame_ms": cpu_frame_ms,
+                    "card_frame_ms": card_frame_ms,
+                    "fallback_renders": fb_renders,
+                    "fallback_max_abs_err": max(fb_errs),
+                    "watchdog_s": watchdog_s, "hang_s": hang_s,
+                    "drill_s": drill_s, "breaker": events}
+
+    # -- (d) profiler: a capture during a burst, a second one refused -----
+    zero()
+    stop = threading.Event()
+
+    def burst(k):
+      i = 0
+      while not stop.is_set():
+        svc.render("drill_000", pan_pose(0.3 * i + k, 0.01), timeout=300)
+        i += 1
+
+    workers = [threading.Thread(target=burst, args=(k,)) for k in range(2)]
+    for t in workers:
+      t.start()
+    result: dict = {}
+    capture = threading.Thread(target=lambda: result.update(
+        zip(("status", "body"), get_json(port, "/debug/profile?seconds=1"))))
+    capture.start()
+    deadline = time.perf_counter() + 30
+    while not svc.profiler.busy and time.perf_counter() < deadline:
+      time.sleep(0.01)
+    busy_status, _ = get_json(port, "/debug/profile?seconds=1")
+    capture.join(120)
+    stop.set()
+    for t in workers:
+      t.join(300)
+    read("profile")
+    check(busy_status == 409, f"a second capture answered {busy_status}")
+    check(result.get("status") == 200, f"profile capture {result}")
+    trace_path = os.path.join(result["body"]["logdir"], "trace.json")
+    with open(trace_path) as fh:
+      names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    ranges = sorted(n for n in names if n.startswith("render/"))
+    kernel_names = sorted(n for n in names if "render_fused" in n)
+    log(f"degraded: profile {os.path.getsize(trace_path)} bytes; ranges "
+        f"{ranges}; kernels {kernel_names}")
+    check(kernel_names, "the capture names no render kernel")
+    check("render/warp_composite" in ranges, "the capture has no render/*")
+    out["profile"] = {"trace_bytes": os.path.getsize(trace_path),
+                      "ranges": ranges, "kernels": kernel_names}
+    svc.close()
+
+    # -- (b) edge: hits and warps launch nothing, misses launch once ------
+    esvc = RenderService(device="cuda", method="fused_pallas",
+                         convention=Convention.EXACT, cpu_fallback="off",
+                         edge=EdgeConfig(**EDGE), max_batch=4,
+                         max_wait_ms=5.0, cache_bytes=2 << 30)
+    esvc.add_scene("drill_000", *drill)
+    esvc.warmup()
+    eport = serve(esvc)
+    base, near = np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+    base[0, 3], near[0, 3] = 0.001, 0.031
+    far = []
+    for tx in (0.3, 0.5, 0.7):
+      p = np.eye(4, dtype=np.float32)
+      p[0, 3] = tx
+      far.append(p)
+    lat: dict = {"hit": [], "warp": [], "miss": []}
+    zero()
+
+    def timed(kind, pose, headers=None):
+      t0 = time.perf_counter()
+      status, hdrs, frame = fetch(eport, "drill_000", pose, headers)
+      lat[kind].append((time.perf_counter() - t0) * 1e3)
+      return status, hdrs, frame
+
+    status, hdrs, f_miss = timed("miss", base)
+    check(status == 200 and hdrs["X-Edge-Cache"] == "miss", "first miss")
+    etag = hdrs["ETag"]
+    for _ in range(5):
+      status, hdrs, f_hit = timed("hit", base)
+      check(hdrs["X-Edge-Cache"] == "hit" and hdrs["ETag"] == etag
+            and f_hit.tobytes() == f_miss.tobytes(), "a repeat missed")
+    status, hdrs, _ = fetch(eport, "drill_000", base,
+                            {"If-None-Match": etag})
+    check(status == 304 and hdrs["X-Edge-Cache"] == "revalidated",
+          f"If-None-Match answered {status}")
+    for _ in range(5):
+      status, hdrs, f_warp = timed("warp", near)
+      check(hdrs["X-Edge-Cache"] == "warp" and "ETag" not in hdrs,
+            "a near pose was not warped")
+    for p in far:
+      status, hdrs, _ = timed("miss", p)
+      check(hdrs["X-Edge-Cache"] == "miss", "a far pose did not miss")
+    read("edge")
+    edge_stats = esvc.stats()["edge"]
+    check(launches["edge"]["render_mpi_fused"] == edge_stats["misses"] == 4,
+          f"launches {launches['edge']} != misses {edge_stats['misses']}")
+    check(np.array_equal(f_miss, direct(esvc.cache.get("drill_000"), base)),
+          "an edge miss differs from a direct kernel render")
+    _, k, depth, _ = esvc._edge_meta("drill_000")
+    warp_cpu = edge_warp.warp_frame(f_miss, base, near, k, depth,
+                                    device="cpu")
+    warp_err = float(np.abs(f_warp - warp_cpu).max())
+    img = torch.from_numpy(np.array(f_miss)).to(dev)
+    rel = torch.from_numpy(edge_warp.relative_pose(base, near)).to(dev)
+    k_dev = torch.from_numpy(np.asarray(k, np.float32)).to(dev)
+    warp_ms = cuda_ms(torch, lambda: edge_warp.warp_tensor(img, rel, k_dev,
+                                                           depth), 10)
+    p50 = {kind: statistics.median(v) for kind, v in lat.items()}
+    log(f"degraded: edge p50 ms {json.dumps(p50)} (HTTP, 24.9 MB bodies); "
+        f"warp on the card {warp_ms:.3f} ms (CUDA events), vs the CPU warp "
+        f"{warp_err:.3e}; stats {json.dumps(edge_stats)}")
+    check(warp_err <= TOL, f"card warp vs CPU warp {warp_err}")
+    out["edge"] = {"p50_ms": p50, "warp_device_ms": warp_ms,
+                   "warp_max_abs_err_vs_cpu": warp_err,
+                   "hit_rate": edge_stats["hit_rate"]}
+    esvc.close()
+    del img
+
+    # -- (c) brownout on phase 9's tiled scene, a clock the phase drives --
+    kw = dict(device="cuda", method="pallas", convention=Convention.EXACT,
+              cpu_fallback="off", max_batch=4, max_wait_ms=20.0)
+    bsvc = RenderService(tile="auto", cache_bytes=8 << 30,
+                         brownout=BrownoutConfig(), **kw)
+    mono = RenderService(cache_bytes=4 << 30, **kw)
+    services.append(mono)
+    for s in (bsvc, mono):
+      s.add_scene("tiled_000", *tscene)
+    bsvc.warmup()
+    bport = serve(bsvc)
+    clk = {"t": 0.0}
+    sig = {"burn": 0.0}
+    bsvc.brownout = BrownoutController(
+        BrownoutConfig(step_dwell_s=1.0, recover_dwell_s=2.0,
+                       eval_interval_s=0.0),
+        burn_fn=lambda: sig["burn"], queue_fn=lambda: 0.0,
+        on_transition=bsvc._on_brownout_transition,
+        clock=lambda: clk["t"])
+    views = {"full": np.eye(4, dtype=np.float32),
+             "pan": pan_pose(-0.2 * 57.3, 0.0)}
+    ref0 = {n: mono.render("tiled_000", p, timeout=300)
+            for n, p in views.items()}
+    burst_poses = [pan_pose(-0.2 * 57.3 + 0.3 * i, 0.0) for i in range(8)]
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+
+    def step(burn):
+      sig["burn"] = burn
+      clk["t"] += 1.0
+      return bsvc.brownout.tick()
+
+    def rps():
+      t0 = time.perf_counter()
+      list(pool.map(lambda p: bsvc.render_request("tiled_000", p,
+                                                  timeout=300), burst_poses))
+      return len(burst_poses) / (time.perf_counter() - t0)
+
+    got: dict = {}
+    level_rps: dict = {}
+    zero()
+    for level in range(4):
+      check(bsvc.brownout.level == level, f"ladder at "
+            f"{bsvc.brownout.level}, not {level}")
+      for name, pose in views.items():
+        status, hdrs, frame = fetch(bport, "tiled_000", pose)
+        check(status == 200 and hdrs["X-Brownout-Level"] == str(level)
+              and (hdrs.get("X-Degraded") == "1") == (level > 0),
+              f"L{level} {name}: {status} {hdrs}")
+        got[(level, name)] = frame
+      if level < 3:
+        level_rps[f"L{level}"] = rps()
+      step(10.0)
+    check(bsvc.brownout.level == 4, "the ladder did not reach L4")
+    shed = {cls: fetch(bport, "tiled_000", views["pan"],
+                       {"X-Request-Class": cls})[:2]
+            for cls in ("interactive", "background")}
+    for cls, (status, hdrs) in shed.items():
+      check(status == 503 and int(hdrs["Retry-After"]) >= 1
+            and hdrs["X-Brownout-Level"] == "4", f"L4 {cls}: {status}")
+    step(0.1)
+    for _ in range(8):
+      clk["t"] += 1.0
+      bsvc.brownout.tick()
+    check(bsvc.brownout.level == 0, f"the ladder is at "
+          f"{bsvc.brownout.level} after recovery")
+    status, hdrs, back = fetch(bport, "tiled_000", views["full"])
+    read("brownout")
+    moves = [(e["old"], e["new"]) for e in bsvc.events.snapshot(
+        kind="brownout_level", recent=32)["events"]]
+    check(moves == [(0, 1), (1, 2), (2, 3), (3, 4), (4, 3), (3, 2), (2, 1),
+                    (1, 0)], f"ladder moves {moves}")
+    check(launches["brownout"]["over_composite_pallas"] > 0,
+          "brownout: the compose kernel never launched")
+    check(status == 200 and np.array_equal(back, ref0["full"]),
+          "after recovery an L0 frame differs from the untiled service")
+    # The references, outside the counted window.
+    full_scene = mono.cache.get("tiled_000")
+    meta = bsvc.tile_meta("tiled_000")
+    keep = bsvc.brownout.config.plane_keep
+    half = torch.tensor([[0.5], [0.5], [1.0]], device=dev)
+    for name, pose in views.items():
+      check(np.array_equal(got[(0, name)], ref0[name]),
+            f"L0 {name} differs from the untiled pallas service")
+      planes = tiles_mod.thin_planes(
+          meta.plan(pose[None], Convention.EXACT).planes, keep)
+      idx = torch.tensor(planes, dtype=torch.long, device=dev)
+      thinned = bake_scene("thin", tscene[0][:, :, list(planes)],
+                           tscene[1][list(planes)], tscene[2], device=dev)
+      check(torch.equal(thinned.planes, full_scene.planes[idx]),
+            "thinned bake")
+      k_half = thinned.intrinsics * half
+      half_hw = (HEIGHT // 2, WIDTH // 2)
+      l1 = direct(thinned, pose, method="pallas")
+      l2 = upsample_nearest(direct(
+          thinned, pose, method="pallas", tgt_intrinsics=k_half,
+          out_hw=half_hw), (HEIGHT, WIDTH))
+      # The plain references: the same thinned planes and half-resolution
+      # homographies, composited by the compose kernel's plain version.
+      p1 = plain_ref(thinned, pose, None, (HEIGHT, WIDTH), f"L1 {name}")
+      p2 = upsample_nearest(
+          plain_ref(thinned, pose, k_half, half_hw, f"L2 {name}"),
+          (HEIGHT, WIDTH))
+      for level, ref, plain_frame in ((1, l1, p1), (2, l2, p2),
+                                      (3, l2, p2)):
+        err = float(np.abs(got[(level, name)] - ref).max())
+        check(np.array_equal(got[(level, name)], ref),
+              f"L{level} {name} differs from its direct render by {err}")
+        err = float(np.abs(got[(level, name)] - plain_frame).max())
+        comp_errs[f"L{level} {name} served"] = err
+        check(err <= TOL, f"L{level} {name} is off the plain render by "
+              f"{err}")
+      del thinned
+    log(f"degraded: brownout renders/s {json.dumps(level_rps)}; ladder "
+        f"{moves}; L4 sheds {json.dumps({c: s for c, (s, _) in shed.items()})}"
+        f"; every level's frames equal their references; compose kernel "
+        f"and served frames vs the plain composite {json.dumps(comp_errs)}")
+    pool.shutdown()
+    out["brownout"] = {"renders_per_s": level_rps, "moves": moves,
+                       "compose_max_abs_err": max(comp_errs.values()),
+                       "compose_errs": comp_errs}
+  finally:
+    for httpd in servers:
+      httpd.shutdown()
+      httpd.server_close()
+    for s in services:
+      s.close()
+    torch.cuda.empty_cache()
+  out["launches"] = launches
+  out["phase_s"] = time.perf_counter() - t_phase
+  log(f"degraded: phase 12 took {out['phase_s']:.1f} s")
+  return out
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -1833,9 +2354,11 @@ def main() -> int:
       if "registers" in line or "spill" in line:
         log(f"ptxas[{name}]: {line.strip()}")
 
-  # Phase 9's scene is host numpy; make it while the card works.
+  # Phase 9's and phase 12's scenes are host numpy; make them while the
+  # card works.
   scene_pool = concurrent.futures.ThreadPoolExecutor(1)
   tiled_future = scene_pool.submit(tiled_scene)
+  drill_future = scene_pool.submit(drill_scene)
 
   # -- 3. kernel vs plain version ----------------------------------------
   gen = torch.Generator(device=dev).manual_seed(0)
@@ -2112,7 +2635,6 @@ def main() -> int:
 
   # -- 9. tiled serving: the slice's main path -------------------------------
   tiled = phase9_tiled(torch, dev, tiled_future.result())
-  scene_pool.shutdown()
   log(json.dumps({"times_tiled": {
       "card": card, "compose_1080p_x32": comp, "tiled_serving": tiled,
       "seconds_total": time.perf_counter() - t_start}}))
@@ -2128,6 +2650,15 @@ def main() -> int:
     bridge = phase11_bridge(torch, dev, workdir)
   log(json.dumps({"times_bridge": {
       "card": card, **bridge, "phase_s": time.perf_counter() - t0,
+      "seconds_total": time.perf_counter() - t_start}}))
+
+  # -- 12. serving under faults and overload: the slice's main path ---------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_degraded_") as workdir:
+    degraded = phase12_degraded(torch, dev, drill_future.result(),
+                                tiled_future.result(), workdir)
+  scene_pool.shutdown()
+  log(json.dumps({"times_degraded": {
+      "card": card, **degraded,
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- result lines --------------------------------------------------------
@@ -2172,6 +2703,14 @@ def main() -> int:
     row["phase11_launches"] = {
         window: counts[counters[row["name"]]]
         for window, counts in bridge["launches"].items()}
+    row["phase12_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in degraded["launches"].items()}
+  # The compose kernel against its plain version at brownout's shapes
+  # (thinned planes, 540-row targets).
+  comp_row = next(row for row in rows if row["name"] == "over_composite")
+  comp_row["phase12_max_abs_err"] = degraded["brownout"][
+      "compose_max_abs_err"]
   print(json.dumps({"kernels": [
       {"name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
        "replaces": REPLACES[row["name"]][0],

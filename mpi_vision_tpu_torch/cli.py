@@ -19,7 +19,11 @@
     swaps in newer checkpoints live), on the card (``--device cuda``, the
     default) or, when asked, the CPU; ``--tiled`` serves tile-granular
     scenes (serve/tiles.py) through the warp and the CUDA compose kernel
-    (``--method pallas``).
+    (``--method pallas``). Degraded modes: ``--cpu-fallback`` (a CPU
+    engine while the breaker refuses the card), ``--edge-cache`` (view-cell
+    frame reuse with ETags), ``--slo`` (on by default) and ``--brownout``
+    (the degradation ladder; picks ``--method pallas``), ``--event-log``,
+    ``--profile-dir`` (``/debug/profile``).
 
 Prints a one-line JSON summary on stdout (diagnostics on stderr).
 """
@@ -47,8 +51,9 @@ def _write_port_file(path: str, port: int) -> None:
 
 
 class _MethodAction(argparse.Action):
-  """Stores ``--method`` and notes that it was given: ``--tiled`` without
-  it renders with 'pallas', the method that takes tile crops."""
+  """Stores ``--method`` and notes that it was given: ``--tiled`` or
+  ``--brownout`` without it renders with 'pallas', the method that takes
+  tile crops and reduced-resolution targets."""
 
   def __call__(self, parser, namespace, values, option_string=None):
     setattr(namespace, self.dest, values)
@@ -403,16 +408,19 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       if tile_size < 8:
         raise SystemExit(f"--tile-size must be >= 8, got {tile_size}")
   convention = Convention.EXACT if args.convention == "exact" else None
+  degraded = _degraded_mode_kwargs(args)
   try:
     svc = RenderService(
         cache_bytes=args.cache_mb << 20, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_inflight=max_inflight,
-        method=(args.method if args.method_given or not args.tiled
+        method=(args.method
+                if args.method_given or not (args.tiled or args.brownout)
                 else "pallas"),
         tile=((tile_size if tile_size is not None else 64)
               if args.tiled else None),
-        convention=convention, device=args.device, max_queue=args.max_queue)
-  except ValueError as e:  # a method that cannot render tile crops
+        convention=convention, device=args.device, max_queue=args.max_queue,
+        **degraded)
+  except ValueError as e:  # a method that cannot render crops/targets
     raise SystemExit(str(e)) from None
   if args.mpi_dir:
     scene_id, mpi, depths, k = mpi_dir_scene(
@@ -479,6 +487,13 @@ def cmd_serve(args: argparse.Namespace) -> dict:
     # Build the kernel and allocate the pinned buffers before traffic.
     svc.warmup()
     _log("serve: warm-up done (every batch bucket rendered once)")
+  if args.prebake_fallback > 0:
+    warm = svc.prebake_fallback(args.prebake_fallback)
+    if warm:
+      _log(f"serve: pre-baked {len(warm)} fallback scene(s) on the CPU")
+    else:
+      _log("serve: --prebake-fallback ignored (no fallback engine; see "
+           "--cpu-fallback)")
 
   httpd = make_http_server(svc, host=args.host, port=args.port)
   port = httpd.server_address[1]
@@ -503,7 +518,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   thread = threading.Thread(target=httpd.serve_forever, daemon=True)
   thread.start()
   _log(f"serve: listening on http://{args.host}:{port} "
-       f"(/render, /healthz, /stats, /debug/traces); "
+       f"(/render, /healthz, /stats, /debug/traces, /debug/events, "
+       f"/debug/profile); "
        f"engine {svc.engine.describe()}")
 
   t0 = time.time()
@@ -540,8 +556,126 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       "errors": stats["errors"],
       "rejected": stats["rejected"],
       "pipeline": stats["pipeline"],
+      "fallback_renders": stats["resilience"]["fallback_renders"],
+      **({"edge": stats["edge"]} if "edge" in stats else {}),
+      **({"slo": stats["slo"]["alerts_firing"]} if "slo" in stats else {}),
+      **({"brownout": stats["brownout"]} if svc.brownout is not None
+         else {}),
       **({"ckpt_reload": watcher.snapshot()} if watcher is not None else {}),
   }
+
+
+def _require(args, gate: str, on: bool, flags) -> None:
+  """Refuse knobs that only act through a mode that is off: a silently
+  inert flag drops what the operator asked for."""
+  given = [flag for flag, set_ in flags if set_]
+  if given and not on:
+    raise SystemExit(f"{', '.join(given)} require(s) {gate}")
+
+
+def _degraded_mode_kwargs(args: argparse.Namespace) -> dict:
+  """``RenderService`` kwargs of the degraded-mode flags: CPU fallback,
+  event log, edge cache, SLO tracking, brownout and the profiler."""
+  import shlex
+  import subprocess
+
+  from mpi_vision_tpu_torch.obs import SloConfig
+  from mpi_vision_tpu_torch.obs import events as events_mod
+  from mpi_vision_tpu_torch.serve.brownout import BrownoutConfig
+  from mpi_vision_tpu_torch.serve.edge import EdgeConfig
+
+  _require(args, "--profile-dir", bool(args.profile_dir),
+           [("--profile-hook", bool(args.profile_hook))])
+  _require(args, "--event-log", bool(args.event_log),
+           [("--event-log-max-bytes", args.event_log_max_bytes > 0)])
+  edge_flags = {"--edge-cache-mb": args.edge_cache_mb,
+                "--edge-trans-cell": args.edge_trans_cell,
+                "--edge-rot-bucket-deg": args.edge_rot_bucket_deg,
+                "--edge-warp-trans": args.edge_warp_trans,
+                "--edge-warp-rot-deg": args.edge_warp_rot_deg,
+                "--edge-max-age-s": args.edge_max_age_s,
+                "--edge-negative-ttl-s": args.edge_negative_ttl_s}
+  _require(args, "--edge-cache", args.edge_cache,
+           [(f, v is not None) for f, v in edge_flags.items()])
+  bo_flags = {"--brownout-burn-high": args.brownout_burn_high,
+              "--brownout-queue-high": args.brownout_queue_high,
+              "--brownout-recover-burn": args.brownout_recover_burn,
+              "--brownout-recover-queue": args.brownout_recover_queue,
+              "--brownout-step-dwell-s": args.brownout_step_dwell_s,
+              "--brownout-recover-dwell-s": args.brownout_recover_dwell_s,
+              "--brownout-plane-keep": args.brownout_plane_keep,
+              "--brownout-warp-scale": args.brownout_warp_scale,
+              "--brownout-max-level": args.brownout_max_level}
+  _require(args, "--brownout", args.brownout,
+           [(f, v is not None) for f, v in bo_flags.items()])
+  if args.brownout and not args.slo:
+    # The ladder is DRIVEN by the SLO burn rate; without the tracker it
+    # would be a queue-only controller pretending to watch the SLO.
+    raise SystemExit("--brownout requires SLO tracking (drop --no-slo)")
+  out: dict = {"cpu_fallback": args.cpu_fallback}
+  if args.event_log:
+    out["events"] = events_mod.EventLog(sink=events_mod.file_sink(
+        args.event_log,
+        max_bytes=(args.event_log_max_bytes
+                   if args.event_log_max_bytes > 0 else None),
+        keep=args.event_log_keep))
+  if args.edge_cache:
+    # Unset knobs are not passed: the dataclass defaults stay the single
+    # source of truth.
+    names = {"--edge-cache-mb": "byte_budget",
+             "--edge-trans-cell": "trans_cell",
+             "--edge-rot-bucket-deg": "rot_bucket_deg",
+             "--edge-warp-trans": "warp_max_trans",
+             "--edge-warp-rot-deg": "warp_max_rot_deg",
+             "--edge-max-age-s": "max_age_s",
+             "--edge-negative-ttl-s": "negative_ttl_s"}
+    kw = {names[f]: (v << 20 if f == "--edge-cache-mb" else v)
+          for f, v in edge_flags.items() if v is not None}
+    try:
+      out["edge"] = EdgeConfig(**kw)
+    except ValueError as e:
+      raise SystemExit(f"bad edge cache config: {e}") from None
+  out["slo"] = None
+  if args.slo:
+    try:
+      out["slo"] = SloConfig(
+          availability_target=args.slo_availability,
+          latency_threshold_s=args.slo_latency_ms / 1e3,
+          latency_target=args.slo_latency_target,
+          fast_window_s=args.slo_fast_window_s,
+          slow_window_s=args.slo_slow_window_s,
+          burn_threshold=args.slo_burn_threshold)
+    except ValueError as e:
+      raise SystemExit(f"bad SLO config: {e}") from None
+  if args.brownout:
+    names = {"--brownout-burn-high": "burn_high",
+             "--brownout-queue-high": "queue_high",
+             "--brownout-recover-burn": "recover_burn",
+             "--brownout-recover-queue": "recover_queue",
+             "--brownout-step-dwell-s": "step_dwell_s",
+             "--brownout-recover-dwell-s": "recover_dwell_s",
+             "--brownout-plane-keep": "plane_keep",
+             "--brownout-warp-scale": "l3_warp_scale",
+             "--brownout-max-level": "max_level"}
+    try:
+      out["brownout"] = BrownoutConfig(**{
+          names[f]: v for f, v in bo_flags.items() if v is not None})
+    except ValueError as e:
+      # BrownoutConfig's own validation (hysteresis-band ordering,
+      # plane-keep range, ...) speaks in flag terms already.
+      raise SystemExit(f"bad brownout config: {e}") from None
+  if args.profile_dir:
+    out["profile_dir"] = args.profile_dir
+  if args.profile_hook:
+    hook_argv = shlex.split(args.profile_hook)
+
+    def profile_hook(capture_dir, _argv=hook_argv):
+      # The finished capture dir rides as the last argv element; any
+      # failure surfaces as a counted, non-fatal hook error.
+      subprocess.run([*_argv, capture_dir], check=True, timeout=600)
+
+    out["profile_hook"] = profile_hook
+  return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -726,6 +860,116 @@ def build_parser() -> argparse.ArgumentParser:
                  default=True,
                  help="build the kernel and render each batch bucket once "
                       "before serving traffic")
+  s.add_argument("--cpu-fallback", default="off",
+                 choices=("auto", "on", "off"),
+                 help="degraded-mode CPU engine while the circuit breaker "
+                      "refuses the card (off, the default: fast-fail with "
+                      "503; auto: only when the primary is not the CPU); "
+                      "only transient device errors and watchdog trips "
+                      "open the breaker, so a kernel build or launch "
+                      "failure fails its request instead")
+  s.add_argument("--prebake-fallback", type=int, default=0,
+                 help="pre-bake this many scenes onto the CPU fallback at "
+                      "startup so the first breaker-open render does not "
+                      "pay a cold bake (0 = bake lazily)")
+  s.add_argument("--profile-dir", default="",
+                 help="enable /debug/profile?seconds=N captures "
+                      "(torch.profiler, Chrome trace) into this directory")
+  s.add_argument("--profile-hook", default="",
+                 help="run this command with each finished capture's "
+                      "directory appended to its argv; failures are "
+                      "counted and reported, never fatal; requires "
+                      "--profile-dir")
+  s.add_argument("--event-log", default="",
+                 help="append one JSON line per lifecycle event (breaker "
+                      "transitions, scene swaps, SLO alert edges, brownout "
+                      "levels) to this file; /debug/events serves the "
+                      "bounded ring either way")
+  s.add_argument("--event-log-max-bytes", type=int, default=0,
+                 help="rotate the --event-log file past this many bytes "
+                      "(FILE -> FILE.1 -> ... -> FILE.<keep>); <= 0 "
+                      "disables rotation; requires --event-log")
+  s.add_argument("--event-log-keep", type=int, default=3,
+                 help="rotated --event-log files retained")
+  s.add_argument("--edge-cache", action=argparse.BooleanOptionalAction,
+                 default=False,
+                 help="pose-quantized edge frame cache (serve/edge/): "
+                      "serve exact view-cell hits from memory and near "
+                      "misses by warping the nearest cached frame on the "
+                      "card; /render gains strong ETags, If-None-Match -> "
+                      "304, Cache-Control and X-Edge-Cache")
+  s.add_argument("--edge-cache-mb", type=int, default=None,
+                 help="edge frame-cache byte budget (default 512)")
+  s.add_argument("--edge-trans-cell", type=float, default=None,
+                 help="view-cell translation pitch in scene units "
+                      "(default 0.05)")
+  s.add_argument("--edge-rot-bucket-deg", type=float, default=None,
+                 help="view-cell rotation pitch in degrees (default 2.0)")
+  s.add_argument("--edge-warp-trans", type=float, default=None,
+                 help="max translation error a near miss may be from a "
+                      "cached frame and still be warped (default 0.1)")
+  s.add_argument("--edge-warp-rot-deg", type=float, default=None,
+                 help="max rotation error for warp serving, degrees "
+                      "(default 4.0)")
+  s.add_argument("--edge-max-age-s", type=int, default=None,
+                 help="Cache-Control: max-age on /render responses "
+                      "(default 5)")
+  s.add_argument("--edge-negative-ttl-s", type=float, default=None,
+                 help="negative-cache TTL (default 0 = off): a render shed "
+                      "queue-full makes repeats of its view cell fail fast "
+                      "with 503 + Retry-After")
+  s.add_argument("--slo", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="track availability + latency SLOs with multi-window "
+                      "burn-rate alerting (obs/slo.py): an slo block in "
+                      "/stats; a firing alert reads degraded in /healthz")
+  s.add_argument("--slo-availability", type=float, default=0.99,
+                 help="availability objective (good-request fraction)")
+  s.add_argument("--slo-latency-ms", type=float, default=1000.0,
+                 help="latency objective: a completed request is good "
+                      "when it finishes under this")
+  s.add_argument("--slo-latency-target", type=float, default=0.95,
+                 help="fraction of completed requests that must beat "
+                      "--slo-latency-ms")
+  s.add_argument("--slo-fast-window-s", type=float, default=60.0,
+                 help="fast burn-rate window")
+  s.add_argument("--slo-slow-window-s", type=float, default=600.0,
+                 help="slow burn-rate window")
+  s.add_argument("--slo-burn-threshold", type=float, default=10.0,
+                 help="error-budget burn rate at which the alert fires")
+  s.add_argument("--brownout", action=argparse.BooleanOptionalAction,
+                 default=False,
+                 help="degrade, don't die: an SLO-burn/queue-depth driven "
+                      "ladder (L1 thinned planes, L2 half resolution, L3 "
+                      "widened edge warps, L4 shed) with priority "
+                      "admission by X-Request-Class; picks --method "
+                      "pallas (the fused kernel cannot render half-"
+                      "resolution targets); requires SLO tracking")
+  s.add_argument("--brownout-burn-high", type=float, default=None,
+                 help="fast-window burn rate at which the ladder steps "
+                      "down (default 2.0)")
+  s.add_argument("--brownout-queue-high", type=float, default=None,
+                 help="queue fraction at which the ladder steps down "
+                      "(default 0.5)")
+  s.add_argument("--brownout-recover-burn", type=float, default=None,
+                 help="burn rate under which a level recovers (default "
+                      "1.0; < --brownout-burn-high)")
+  s.add_argument("--brownout-recover-queue", type=float, default=None,
+                 help="queue fraction under which a level recovers "
+                      "(default 0.25; < --brownout-queue-high)")
+  s.add_argument("--brownout-step-dwell-s", type=float, default=None,
+                 help="seconds between consecutive downward steps "
+                      "(default 2.0)")
+  s.add_argument("--brownout-recover-dwell-s", type=float, default=None,
+                 help="healthy seconds per upward step (default 5.0)")
+  s.add_argument("--brownout-plane-keep", type=float, default=None,
+                 help="fraction of the culled plane set L1+ keeps "
+                      "(default 0.5)")
+  s.add_argument("--brownout-warp-scale", type=float, default=None,
+                 help="L3 multiplier on the edge warp tolerances "
+                      "(default 3.0)")
+  s.add_argument("--brownout-max-level", type=int, default=None,
+                 help="ladder ceiling 1-4 (default 4)")
   s.set_defaults(fn=cmd_serve, method_given=False)
   return ap
 

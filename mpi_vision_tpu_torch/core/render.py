@@ -16,6 +16,11 @@ stages:
 
 Layouts: MPIs enter as ``[B, H, W, P, 4]`` (the reference layout) or
 planes-leading ``[P, B, H, W, 4]``.
+
+The stages carry ``debug.named_scope`` ranges (``render/homographies``,
+``render/warp``, ``render/composite``; the fused kernel's launch is
+``render/warp_composite``), as the JAX package's ``jax.named_scope``s, so
+profiles and Nsight timelines name them; the ranges add no synchronise.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from mpi_vision_tpu_torch.core import compose, geometry, sampling
 from mpi_vision_tpu_torch.core.sampling import Convention
+from mpi_vision_tpu_torch.debug import named_scope
 
 METHODS = ("fused_pallas", "pallas", "fused", "scan", "assoc")
 
@@ -220,44 +226,51 @@ def render_mpi(
           "src_window (cropped sources); use 'pallas' or a plain method "
           "('fused'/'scan').")
     from mpi_vision_tpu_torch.kernels import render_fused
-    homs = render_fused.pixel_homographies(
-        tgt_pose, depths, intrinsics, h, w, convention)   # [P, B, 3, 3]
+    with named_scope("render/homographies"):
+      homs = render_fused.pixel_homographies(
+          tgt_pose, depths, intrinsics, h, w, convention)  # [P, B, 3, 3]
     batched = planes.movedim(0, 1)                        # [B, P, H, W, 4]
     if batched.shape[0] == 1 or batched.stride(0) == 0:
       # One scene broadcast across the batch (render_views): hand the
       # kernel the scene once, with a view stride of 0. For a baked scene
       # this is its resident [P, H, W, 4] buffer, not a copy.
       batched = batched[0]
-    return render_fused.render_mpi_fused(
-        batched.contiguous(), homs.transpose(0, 1).contiguous())
+    with named_scope("render/warp_composite"):
+      return render_fused.render_mpi_fused(
+          batched.contiguous(), homs.transpose(0, 1).contiguous())
 
   if src_window is not None:
     src_window = tuple(int(v) for v in src_window)
     h, w = src_window[2:]
   th, tw = (h, w) if out_hw is None else (int(out_hw[0]), int(out_hw[1]))
-  homs = plane_homographies(tgt_pose, depths, intrinsics,
-                            tgt_intrinsics=tgt_intrinsics)  # [P, B, 3, 3]
+  with named_scope("render/homographies"):
+    homs = plane_homographies(tgt_pose, depths, intrinsics,
+                              tgt_intrinsics=tgt_intrinsics)  # [P, B, 3, 3]
 
   if method == "pallas":
-    return compose.over_composite(
-        warp_stack(planes, homs, th, tw, convention, src_window),
-        method="pallas")
+    with named_scope("render/warp"):
+      warped = warp_stack(planes, homs, th, tw, convention, src_window)
+    with named_scope("render/composite"):
+      return compose.over_composite(warped, method="pallas")
 
   if method != "fused":
-    coords = warp_coordinates(homs, th, tw, convention,
-                              src_height=h, src_width=w)
-    warped = sampling.bilinear_sample(planes, coords, window=src_window)
-    return compose.over_composite(warped, method=method)
+    with named_scope("render/warp"):
+      coords = warp_coordinates(homs, th, tw, convention,
+                                src_height=h, src_width=w)
+      warped = sampling.bilinear_sample(planes, coords, window=src_window)
+    with named_scope("render/composite"):
+      return compose.over_composite(warped, method=method)
 
   def warp_one(plane, hom):
     coords = warp_coordinates(hom, th, tw, convention,
                               src_height=h, src_width=w)
     return sampling.bilinear_sample(plane, coords, window=src_window)
 
-  # Farthest plane: alpha ignored.
-  out = warp_one(planes[0], homs[0])[..., :3]
-  for p in range(1, planes.shape[0]):
-    rgba = warp_one(planes[p], homs[p])
-    rgb, alpha = rgba[..., :3], rgba[..., 3:]
-    out = rgb * alpha + out * (1.0 - alpha)
+  with named_scope("render/warp_composite_scan"):
+    # Farthest plane: alpha ignored.
+    out = warp_one(planes[0], homs[0])[..., :3]
+    for p in range(1, planes.shape[0]):
+      rgba = warp_one(planes[p], homs[p])
+      rgb, alpha = rgba[..., :3], rgba[..., 3:]
+      out = rgb * alpha + out * (1.0 - alpha)
   return out

@@ -40,6 +40,15 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
 
+class KernelBuildError(RuntimeError):
+  """A kernel could not be built: no ``nvcc``, or a source failed to
+  compile. Permanent: it fails the same way on every retry, so the serving
+  layer's ``classify_error`` never retries it or routes it to the CPU
+  fallback (``transient = False``)."""
+
+  transient = False
+
+
 def find_nvcc() -> str:
   """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` or /usr/local/cuda."""
   found = shutil.which("nvcc")
@@ -48,7 +57,7 @@ def find_nvcc() -> str:
   for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
     if root and Path(root, "bin", "nvcc").is_file():
       return str(Path(root, "bin", "nvcc"))
-  raise RuntimeError(
+  raise KernelBuildError(
       "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA kernels "
       "are built from kernels/csrc/ at first use and need the CUDA toolkit")
 
@@ -67,7 +76,7 @@ def build(names) -> dict[str, float]:
   """Compile every named source not yet built, all ``nvcc``s at once.
 
   Returns seconds per compiled name (already-built names are skipped).
-  Raises ``RuntimeError`` naming each source that failed to compile.
+  Raises ``KernelBuildError`` naming each source that failed to compile.
   """
   todo = [n for n in names if not library_path(n).exists()]
   if not todo:
@@ -92,7 +101,7 @@ def build(names) -> dict[str, float]:
       continue
     os.replace(tmp, library_path(name))  # atomic: no half-written library
   if failed:
-    raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    raise KernelBuildError("CUDA kernel build failed:\n" + "\n".join(failed))
   return seconds
 
 

@@ -57,11 +57,17 @@ def plain_composite(rgba: torch.Tensor) -> torch.Tensor:
   """
   with _count_lock:
     plain_composite.calls += 1
+    kind = rgba.device.type
+    plain_composite.by_device[kind] = \
+        plain_composite.by_device.get(kind, 0) + 1
   out = compose.over_composite_scan(rgba.to(torch.float32))
   return out.to(rgba.dtype)
 
 
 plain_composite.calls = 0
+# The same runs by device type ("cpu": the CPU fallback or a CPU service;
+# "cuda": a plain run on the card).
+plain_composite.by_device = {"cpu": 0, "cuda": 0}
 
 
 def _check(rgba: torch.Tensor) -> None:

@@ -190,6 +190,8 @@ def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   """
   with _count_lock:
     plain_render.calls += 1
+    kind = planes.device.type
+    plain_render.by_device[kind] = plain_render.by_device.get(kind, 0) + 1
   shared = planes.dim() == 4
   num_planes, h, w = planes.shape[-4], planes.shape[-3], planes.shape[-2]
   grid, scale = pixel_grid(h, w, planes.device)
@@ -207,6 +209,10 @@ def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
 
 
 plain_render.calls = 0
+# The same runs by device type: on a card's serving path a "cpu" run is a
+# CPU-fallback render, a "cuda" one a plain run on the card (comparisons,
+# the d homs backward) — which the port forbids on the served path.
+plain_render.by_device = {"cpu": 0, "cuda": 0}
 
 
 def reference_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,11 @@ class BakedScene:
   ``intrinsics`` still is, and the frame renders at ``H x W``
   (``core.render.render_mpi``'s ``src_window``). ``None`` (every
   whole-scene bake) keeps the engine's historical call.
+
+  ``tgt_intrinsics``/``out_hw`` override the render target (the brownout
+  ladder's L2 half-resolution view of a bake, ``RenderService.
+  _half_res_view``): the frame renders at ``out_hw`` through
+  ``tgt_intrinsics``. ``None`` renders at the scene's own raster.
   """
 
   scene_id: str
@@ -41,6 +46,8 @@ class BakedScene:
   intrinsics: torch.Tensor  # [3, 3]
   nbytes: int
   src_window: tuple | None = None
+  tgt_intrinsics: torch.Tensor | None = None  # [3, 3]
+  out_hw: tuple | None = None
 
   @property
   def rgba_layers(self) -> torch.Tensor:

@@ -191,8 +191,12 @@ class RenderEngine:
 
   def _render(self, scene: BakedScene, poses: torch.Tensor) -> torch.Tensor:
     # A tile crop (serve/tiles.py) renders the full frame from its window
-    # of the scene; a whole-scene bake keeps the historical call.
+    # of the scene, a half-resolution view (brownout L2) its own target;
+    # a whole-scene bake keeps the historical call.
     kw = {} if scene.src_window is None else {"src_window": scene.src_window}
+    if scene.out_hw is not None:
+      kw["out_hw"] = scene.out_hw
+      kw["tgt_intrinsics"] = scene.tgt_intrinsics
     return render.render_views(scene.rgba_layers, poses, scene.depths,
                                scene.intrinsics, convention=self.convention,
                                method=self.method, **kw)
@@ -230,8 +234,10 @@ class RenderEngine:
           # The cache may evict the scene while this batch still reads it
           # on the engine's stream: keep its memory from being reused
           # until the stream has passed this point.
-          for t in (scene.planes, scene.depths, scene.intrinsics):
-            t.record_stream(self._stream)
+          for t in (scene.planes, scene.depths, scene.intrinsics,
+                    scene.tgt_intrinsics):
+            if t is not None:
+              t.record_stream(self._stream)
           frames = self._render(scene, poses_dev)
           out = torch.empty(frames.shape, dtype=frames.dtype,
                             pin_memory=True)
@@ -294,6 +300,17 @@ class RenderEngine:
   @property
   def platform(self) -> str:
     return self.device.type
+
+  def cpu_fallback(self) -> "RenderEngine":
+    """A CPU engine with this engine's method, convention and window — the
+    degraded-mode route while the circuit breaker refuses the card. On the
+    CPU every kernel wrapper runs its plain version (the same method by
+    name: ``fused_pallas`` renders through ``plain_render``, ``pallas``
+    composites through ``plain_composite``), so a fallback frame is the
+    kernel's function of the same inputs."""
+    return RenderEngine(method=self.method, convention=self.convention,
+                        device="cpu", clock=self._clock,
+                        max_inflight=self.max_inflight)
 
   def describe(self) -> dict:
     return {

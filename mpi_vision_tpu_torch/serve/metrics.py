@@ -40,6 +40,11 @@ class ServeMetrics:
     self._clock = clock
     self._lock = threading.Lock()
     self._window = window
+    # Optional obs.slo.SloTracker fed by record_request/record_error/
+    # record_rejected/record_breaker_fastfail (set by RenderService).
+    # Called OUTSIDE this object's lock: the tracker locks itself, and
+    # its alert callback may fan out to the event log.
+    self.slo = None
     self.reset()
 
   def reset(self) -> None:
@@ -68,6 +73,9 @@ class ServeMetrics:
       self.breaker_opens = 0
       self.breaker_fastfails = 0
       self.client_disconnects = 0
+      # Batches served by the degraded-mode CPU fallback engine while the
+      # breaker refused the card.
+      self.fallback_renders = 0
       # Pipeline accounting: flights in the air, device idle gaps
       # between dispatches (the "device never waits on the host" proof),
       # completions that beat an earlier-dispatched straggler, and
@@ -99,6 +107,21 @@ class ServeMetrics:
       self._hist_phase = {phase: hist_mod.NativeHistogram()
                           for phase in ("h2d", "compute", "readback")}
       self._hist_batch = hist_mod.NativeHistogram()
+      # Brownout accounting (serve/brownout.py): sheds by priority class
+      # and degraded serves by ladder level. Deliberate load management,
+      # NOT SLO bad events — feeding these to the tracker would hold the
+      # burn rate high and deadlock the ladder's recovery.
+      self.brownout_sheds = {cls: 0 for cls in
+                             ("interactive", "prefetch", "background")}
+      self.brownout_degraded = {lvl: 0 for lvl in (1, 2, 3, 4)}
+      # Edge warp serves' pose error (serve/edge/): how far the served
+      # frame's render pose was from the request.
+      self._hist_warp_pose_error = {
+          "trans": hist_mod.NativeHistogram(),
+          "rot_deg": hist_mod.NativeHistogram(),
+      }
+    if self.slo is not None:
+      self.slo.reset()
 
   def record_request(self, latency_s: float, scene_id: str | None = None,
                      trace_id: str | None = None) -> None:
@@ -124,6 +147,11 @@ class ServeMetrics:
         entry[1] += latency_s
         entry[2] = max(entry[2], latency_s)
         entry[3].append(latency_s)
+    if self.slo is not None:
+      # trace_id rides into the SLO windows' native histograms too, so
+      # quantile alerts carry a worst-offender exemplar.
+      self.slo.record(ok=True, latency_s=latency_s, scene_id=scene_id,
+                      trace_id=trace_id)
 
   def record_error(self, kind: str, count: int = 1) -> None:
     """``count`` requests failed with a ``kind``-class error.
@@ -140,11 +168,16 @@ class ServeMetrics:
         self.errors_deadline += count
       else:
         self.errors_permanent += count
+    if self.slo is not None:
+      self.slo.record_bad(count)
 
   def record_rejected(self) -> None:
-    """One submission shed at the door (queue full, HTTP 503)."""
+    """One submission shed at the door (queue full, HTTP 503) — an SLO
+    bad event: the caller saw a 503 whatever the queue's reasons were."""
     with self._lock:
       self.rejected += 1
+    if self.slo is not None:
+      self.slo.record_bad()
 
   def record_retry(self) -> None:
     with self._lock:
@@ -158,10 +191,45 @@ class ServeMetrics:
     with self._lock:
       self.breaker_opens += 1
 
+  def record_fallback(self) -> None:
+    """One batch served by the degraded-mode CPU fallback engine."""
+    with self._lock:
+      self.fallback_renders += 1
+
   def record_breaker_fastfail(self) -> None:
-    """One request fast-failed against an open circuit (HTTP 503)."""
+    """One request fast-failed against an open circuit (HTTP 503) — an
+    SLO bad event like a queue shed."""
     with self._lock:
       self.breaker_fastfails += 1
+    if self.slo is not None:
+      self.slo.record_bad()
+
+  def record_brownout_shed(self, request_class: str) -> None:
+    """One request shed by brownout admission control.
+
+    Deliberately NOT an SLO bad event (unlike ``record_rejected``):
+    brownout sheds are the controller doing its job, and counting them
+    bad would hold the fast-window burn at its trigger level forever —
+    the ladder could never step back up.
+    """
+    with self._lock:
+      cls = (request_class if request_class in self.brownout_sheds
+             else "interactive")
+      self.brownout_sheds[cls] += 1
+
+  def record_degraded(self, level: int) -> None:
+    """One response served below full quality at ladder ``level``."""
+    with self._lock:
+      self.brownout_degraded[min(max(int(level), 1), 4)] += 1
+
+  def record_warp_pose_error(self, trans: float, rot_deg: float,
+                             trace_id: str | None = None) -> None:
+    """One edge warp-serve's pose error (how far the served frame's
+    render pose was from the request pose)."""
+    with self._lock:
+      self._hist_warp_pose_error["trans"].record(trans, exemplar=trace_id)
+      self._hist_warp_pose_error["rot_deg"].record(rot_deg,
+                                                   exemplar=trace_id)
 
   def record_client_disconnect(self) -> None:
     """The client hung up mid-response (BrokenPipe/ConnectionReset)."""
@@ -260,6 +328,7 @@ class ServeMetrics:
           "resilience": {
               "retries": self.retries,
               "watchdog_trips": self.watchdog_trips,
+              "fallback_renders": self.fallback_renders,
               "breaker_opens": self.breaker_opens,
               "breaker_fastfails": self.breaker_fastfails,
               "client_disconnects": self.client_disconnects,
@@ -295,6 +364,19 @@ class ServeMetrics:
               "phase": {phase: h.snapshot()
                         for phase, h in self._hist_phase.items()},
               "batch": self._hist_batch.snapshot(),
+              "warp_pose_error": {
+                  comp: h.snapshot()
+                  for comp, h in self._hist_warp_pose_error.items()},
+          },
+          # The service overlays controller state (level, transitions,
+          # signals) when brownout is on; the counters live here so a
+          # load generator's reset() zeroes them with everything else.
+          "brownout": {
+              "enabled": False,
+              "level": 0,
+              "sheds": dict(self.brownout_sheds),
+              "degraded": {str(k): v
+                           for k, v in self.brownout_degraded.items()},
           },
           "per_scene": {
               sid: {

@@ -14,8 +14,12 @@ outage class:
     request deadline (a retry the caller will never see is dead work).
   * **circuit breaker** — ``CircuitBreaker``: N consecutive primary
     failures open the circuit; while open, callers fast-fail (HTTP 503
-    + Retry-After); after a cooldown one half-open probe decides
-    re-close vs re-open. Work never moves off the card.
+    + Retry-After) or route to a fallback engine (the service's CPU
+    fallback, ``RenderEngine.cpu_fallback``); after a cooldown one
+    half-open probe, always on the card, decides re-close vs re-open.
+    Only the breaker moves work off the card: a permanent error (a bad
+    request, a kernel that does not build or launch) fails its request
+    and never reaches the fallback.
   * **watchdog** — ``call_with_watchdog``: a dispatch that exceeds its
     deadline fails (``DispatchTimeoutError``) instead of wedging the
     scheduler's only dispatcher thread; the hung call is abandoned on a
@@ -24,7 +28,8 @@ outage class:
 ``ResilientExecutor`` composes all four around one callable and is what
 ``scheduler.MicroBatcher`` dispatches through. Everything here is
 engine-agnostic and injectable (clock, sleep, seed) so the whole state
-machine is testable on the CPU with fake clocks and injected faults.
+machine is testable on the CPU with fake clocks and injected faults
+(``serve/faultinject.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ class DispatchTimeoutError(TransientDeviceError):
 
 
 class CircuitOpenError(RuntimeError):
-  """Fast-fail: the circuit is open.
+  """Fast-fail: the circuit is open and no fallback engine is available.
 
   ``retry_after_s`` is the cooldown remaining until the next half-open
   probe — the HTTP layer maps it to a 503 with a Retry-After header.
@@ -84,8 +89,13 @@ def classify_error(exc: BaseException) -> str:
 
   Bad-input types (ValueError/TypeError/KeyError) are permanent even if
   their message happens to contain a transient marker — a request that
-  failed validation fails identically on every retry.
+  failed validation fails identically on every retry. So is an error that
+  declares ``transient = False`` (``kernels._build.KernelBuildError``: a
+  kernel that does not build fails the same way on every retry, and must
+  never send work to the CPU fallback).
   """
+  if getattr(exc, "transient", None) is False:
+    return "permanent"
   if isinstance(exc, (TransientDeviceError, CircuitOpenError)):
     return "transient"  # an open circuit heals; retry later, not never
   if isinstance(exc, (ValueError, TypeError, KeyError)):
@@ -309,23 +319,30 @@ class ResilienceConfig:
 
 
 class ResilientExecutor:
-  """Retry + breaker + watchdog around one dispatch callable.
+  """Retry + breaker + watchdog + fallback around one dispatch callable.
 
-  ``run(primary_fn, deadline)`` executes ``primary_fn`` under the
-  watchdog, retrying transient failures with backoff while the deadline
-  allows, counting outcomes into the breaker. Once the breaker refuses the
-  device, ``CircuitOpenError`` fast-fails the batch. Permanent errors raise
-  immediately, uncounted — a bad request must not open the circuit on a
-  healthy device.
+  ``run(primary_fn, fallback_fn, deadline)`` executes ``primary_fn``
+  under the watchdog, retrying transient failures with backoff while the
+  deadline allows, counting primary outcomes into the breaker. Once the
+  breaker refuses the primary, attempts route to ``fallback_fn`` (the
+  degraded-mode CPU engine) when one exists, else ``CircuitOpenError``
+  fast-fails the batch. Permanent errors raise immediately, uncounted — a
+  bad request must not open the circuit on a healthy device, and a
+  permanent device error (a kernel build or launch failure) must not be
+  hidden behind the fallback.
 
   Single logical caller per flight; the breaker itself is thread-safe so
   ``check_fastfail`` may race from submitters.
   """
 
   def __init__(self, config: ResilienceConfig | None = None,
-               metrics=None, clock=time.monotonic, sleep=time.sleep):
+               metrics=None, events=None, clock=time.monotonic,
+               sleep=time.sleep):
     self.config = config if config is not None else ResilienceConfig()
     self.metrics = metrics
+    # Optional obs.events.EventLog: breaker transitions and watchdog
+    # trips are exactly the lifecycle moments /debug/events exists for.
+    self.events = events
     self._clock = clock
     self._sleep = sleep
     self._policy = self.config.retry_policy()
@@ -338,17 +355,20 @@ class ResilientExecutor:
   def _on_breaker_transition(self, old: str, new: str) -> None:
     if self.metrics is not None and new == CircuitBreaker.OPEN:
       self.metrics.record_breaker_open()
+    if self.events is not None:
+      self.events.emit("breaker", old=old, new=new)
 
   def _fastfail(self) -> CircuitOpenError:
     if self.metrics is not None:
       self.metrics.record_breaker_fastfail()
     return CircuitOpenError(self.breaker.retry_after_s())
 
-  def check_fastfail(self) -> None:
+  def check_fastfail(self, have_fallback: bool = False) -> None:
     """Submit-time guard: raise ``CircuitOpenError`` when a request could
-    only ever meet an open breaker."""
-    if not self.breaker.would_allow():
-      raise self._fastfail()
+    only ever meet an open breaker (no fallback to degrade to)."""
+    if have_fallback or self.breaker.would_allow():
+      return
+    raise self._fastfail()
 
   def _watchdog_timeout(self, deadline: float | None) -> float | None:
     if self.config.watchdog_s is None:
@@ -357,7 +377,8 @@ class ResilientExecutor:
       return self.config.watchdog_s
     return min(self.config.watchdog_s, deadline - self._clock())
 
-  def run(self, primary_fn, deadline: float | None = None, recorder=None):
+  def run(self, primary_fn, fallback_fn=None, deadline: float | None = None,
+          recorder=None):
     """One resilient dispatch. ``deadline`` is absolute (clock units).
 
     ``recorder`` is an optional ``obs.trace.SpanRecorder``: every attempt
@@ -368,20 +389,33 @@ class ResilientExecutor:
     """
     attempt = 0
     while True:
+      use_fallback = False
+      holds_probe = False
       if not self.breaker.allow_primary():
-        raise self._fastfail()
-      # A True from a non-CLOSED breaker IS the half-open probe; this
-      # attempt must report back (or release) whatever happens, or the
-      # slot leaks and the breaker wedges in HALF_OPEN forever.
-      holds_probe = self.breaker.state == CircuitBreaker.HALF_OPEN
+        if fallback_fn is None:
+          raise self._fastfail()
+        use_fallback = True
+      else:
+        # A True from a non-CLOSED breaker IS the half-open probe; this
+        # attempt must report back (or release) whatever happens, or the
+        # slot leaks and the breaker wedges in HALF_OPEN forever. The
+        # probe always goes to the primary, so the card takes the
+        # traffic back the moment it answers.
+        holds_probe = self.breaker.state == CircuitBreaker.HALF_OPEN
       timeout = self._watchdog_timeout(deadline)
-      span = (recorder.begin("attempt", attempt=attempt)
+      span = (recorder.begin("attempt", attempt=attempt,
+                             fallback=use_fallback)
               if recorder is not None else None)
       try:
-        out = call_with_watchdog(primary_fn, timeout)
+        fn = fallback_fn if use_fallback else primary_fn
+        out = call_with_watchdog(fn, timeout)
         if span is not None:
           recorder.end(span)
-        self.breaker.record_success()
+        if use_fallback:
+          if self.metrics is not None:
+            self.metrics.record_fallback()
+        else:
+          self.breaker.record_success()
         return out
       except Exception as e:  # noqa: BLE001 - classified below
         if span is not None:
@@ -400,12 +434,19 @@ class ResilientExecutor:
             and timeout < self.config.watchdog_s)
         if deadline_capped:
           e.deadline_capped = True  # upper layers label it overload (504)
-        if isinstance(e, DispatchTimeoutError) and self.metrics is not None:
-          self.metrics.record_watchdog_trip()
-        if not deadline_capped:
-          self.breaker.record_failure()
-        elif holds_probe:
-          self.breaker.release_probe()
+        if isinstance(e, DispatchTimeoutError):
+          if self.metrics is not None:
+            self.metrics.record_watchdog_trip()
+          if self.events is not None:
+            self.events.emit("watchdog_trip", attempt=attempt,
+                             fallback=use_fallback,
+                             deadline_capped=deadline_capped)
+        if not use_fallback:
+          if deadline_capped:
+            if holds_probe:
+              self.breaker.release_probe()
+          else:
+            self.breaker.record_failure()
         attempt += 1
         if attempt > self._policy.max_retries:
           raise

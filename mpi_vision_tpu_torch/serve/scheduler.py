@@ -28,8 +28,10 @@ dispatch — one flight at a time, the dispatcher backpressured until it
 completes.
 
 Resilience attaches to the *flight*, not the dispatcher: every flight
-runs its attempts (retry/backoff/breaker/watchdog) on its own completion
-worker, with its own deadline. A flight the watchdog gives up on is *abandoned* — its futures fail, its device
+runs its attempts (retry/backoff/breaker/watchdog, and the degraded-mode
+CPU fallback while the breaker refuses the card) on its own completion
+worker, with its own deadline. A flight the watchdog gives up on is
+*abandoned* — its futures fail, its device
 work cannot be cancelled, but its engine window slot is released
 (``engine.abandon``) and the abandonment is counted
 (``abandoned_batches``) so a hung device degrades loudly instead of
@@ -91,6 +93,8 @@ class _Pending:
   key: str = ""                  # batch/scene-provider key (tile signature
                                  # appended for tiled scenes); defaults to
                                  # scene_id in submit()
+  attrib: tuple | None = None    # (request_class, brownout_level) of the
+                                 # request; None = unlabeled
 
 
 @dataclasses.dataclass
@@ -143,9 +147,14 @@ class MicroBatcher:
       startup); defaults to ``max(max_inflight, 16)``.
     resilient: optional ``resilience.ResilientExecutor``; when set, every
       flight runs through its retry/breaker/watchdog machinery and an
-      open breaker fast-fails submissions (``CircuitOpenError``).
-    batch_keyer: optional ``(scene_id, pose) -> (key, attrs | None)`` hook
-      of tile-granular services (serve/tiles.py). The key replaces the
+      open breaker fast-fails submissions (``CircuitOpenError``) unless a
+      fallback engine can degrade instead.
+    fallback_engine / fallback_scene_provider: the degraded-mode route —
+      a CPU engine plus a provider baking scenes onto *its* device; used
+      only while the breaker refuses the primary.
+    batch_keyer: optional ``(scene_id, pose, degrade) -> (key, attrs |
+      None)`` hook of tile-granular and brownout services (serve/tiles.py;
+      ``degrade`` is ``submit``'s). The key replaces the
       scene id for batch coalescing AND the scene-provider call, so
       requests batch only with frusta sharing their exact render plan —
       which keeps a request's pixels a pure function of its own pose,
@@ -165,6 +174,7 @@ class MicroBatcher:
                max_inflight_cap: int | None = None,
                adapt_every: int = 32, adapt_improve: float = 0.05,
                resilient: ResilientExecutor | None = None,
+               fallback_engine=None, fallback_scene_provider=None,
                batch_keyer=None, clock=time.monotonic):
     if max_batch < 1:
       raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -180,6 +190,8 @@ class MicroBatcher:
           f"{max_inflight}")
     if adapt_every < 1:
       raise ValueError(f"adapt_every must be >= 1, got {adapt_every}")
+    if fallback_engine is not None and fallback_scene_provider is None:
+      raise ValueError("fallback_engine requires fallback_scene_provider")
     self.engine = engine
     self.scene_provider = scene_provider
     self.metrics = ServeMetrics() if metrics is None else metrics
@@ -200,6 +212,8 @@ class MicroBatcher:
     self._adapt_settled = not self.adaptive_inflight
     self._adapt_epochs = 0
     self.resilient = resilient
+    self.fallback_engine = fallback_engine
+    self.fallback_scene_provider = fallback_scene_provider
     self._batch_keyer = batch_keyer
     self._clock = clock
     self._queue: deque[_Pending] = deque()
@@ -280,7 +294,8 @@ class MicroBatcher:
   # -- request path -------------------------------------------------------
 
   def submit(self, scene_id: str, pose, timeout: float | None = None,
-             trace=NULL_TRACE) -> Future:
+             trace=NULL_TRACE, degrade: int = 0,
+             attrib: tuple | None = None) -> Future:
     """Enqueue one pose render; the future resolves to ``[H, W, 3]``.
 
     ``timeout`` (seconds) sets the request's deadline: retries/backoff
@@ -290,28 +305,36 @@ class MicroBatcher:
     ``trace`` is this request's ``obs.trace.Trace``; the pipeline
     records its span tree (queue-wait onward) and finishes it when the
     future resolves. The default no-op singleton costs nothing.
+
+    ``degrade`` is the brownout render tier (0 = full quality) threaded
+    to the batch keyer, which folds it into the batch key — degraded and
+    full-quality requests can never coalesce into one flight.
+
+    ``attrib`` is the request's ``(request_class, brownout_level)``
+    (the service's front door sets it); it rides the pending entry and
+    lands on the request's trace as a zero-length ``admit`` span.
     """
     pose = np.asarray(pose, np.float32)
     if pose.shape != (4, 4):
       raise ValueError(f"pose must be [4, 4], got {pose.shape}")
     if self.resilient is not None:
-      # Fast-fail 503 at the door while the breaker is open: queueing the
-      # request would only make the caller wait to learn what is already
-      # known.
-      self.resilient.check_fastfail()
+      # Fast-fail 503 at the door while the breaker is open and there is
+      # no fallback to degrade to: queueing the request would only make
+      # the caller wait to learn what is already known.
+      self.resilient.check_fastfail(self.fallback_engine is not None)
     key, attrs = str(scene_id), None
     if self._batch_keyer is not None:
       # Frustum culling happens HERE, at the door: the key decides which
       # batch the request may ride (KeyError for unknown scenes
       # propagates to the caller — the same 404 the provider would
       # raise, just before any queue time is spent).
-      key, attrs = self._batch_keyer(str(scene_id), pose)
+      key, attrs = self._batch_keyer(str(scene_id), pose, degrade)
     now = self._clock()
     fut: Future = Future()
     req = _Pending(str(scene_id), pose, fut, now,
                    deadline=None if timeout is None else now + timeout,
                    trace=trace, qspan=trace.start_span("queue_wait"),
-                   key=key)
+                   key=key, attrib=attrib)
     with self._cond:
       if self._stop or self._thread is None:
         raise RuntimeError("scheduler is not running")
@@ -322,6 +345,10 @@ class MicroBatcher:
       self._queue.append(req)
       self.metrics.set_queue_depth(len(self._queue))
       self._cond.notify_all()
+    if attrib is not None:
+      cls, level = attrib
+      trace.end_span(trace.start_span("admit", request_class=cls,
+                                      level=level))
     if attrs:
       # Enqueued for real: only now does the plan land on the trace and
       # in the tile counters — rejected requests never skew the ratios.
@@ -332,8 +359,15 @@ class MicroBatcher:
                                 attrs["tiles_total"], attrs.get("planes"))
     return fut
 
+  def queue_fraction(self) -> float:
+    """Queue occupancy in [0, 1] — the brownout controller's pressure
+    signal (burn rate says users are hurting; this says why)."""
+    with self._cond:
+      return len(self._queue) / self.max_queue
+
   def render(self, scene_id: str, pose, timeout: float = 60.0,
-             trace=NULL_TRACE) -> np.ndarray:
+             trace=NULL_TRACE, degrade: int = 0,
+             attrib: tuple | None = None) -> np.ndarray:
     """Synchronous render: submit + wait.
 
     On timeout the request is cancelled (best-effort) so an overloaded
@@ -347,7 +381,8 @@ class MicroBatcher:
     completion is safe).
     """
     try:
-      fut = self.submit(scene_id, pose, timeout=timeout, trace=trace)
+      fut = self.submit(scene_id, pose, timeout=timeout, trace=trace,
+                        degrade=degrade, attrib=attrib)
     except Exception as e:
       trace.finish(error=repr(e))
       raise
@@ -588,14 +623,14 @@ class MicroBatcher:
               pass
             req.trace.finish(error=repr(e))
 
-  def _bake_with_span(self, scene_id, recorder, parent):
+  def _bake_with_span(self, scene_provider, scene_id, recorder, parent):
     """Scene lookup/bake with its trace span — a cache hit is ~0 ms, a
     miss is the real bake, and a failed bake carries its error on the
     span before re-raising, so the trace tree stays complete through
-    retries."""
+    retries and fallback."""
     tb0 = self._clock()
     try:
-      scene = self.scene_provider(scene_id)
+      scene = scene_provider(scene_id)
     except Exception as e:
       if recorder is not None:
         recorder.record("bake", tb0, self._clock(), error=repr(e),
@@ -620,9 +655,11 @@ class MicroBatcher:
     recorder.record("readback", compute_end,
                     compute_end + timings["readback_s"], parent=parent)
 
-  def _attempt(self, scene_id, poses, recorder, handles):
-    """One attempt via the streaming engine API: bake + async submit +
-    wait (the only sync). Returns ``(images, render_s, phase_timings)``.
+  def _attempt(self, engine, scene_provider, scene_id, poses, recorder,
+               handles):
+    """One attempt via the streaming engine API of ``engine`` (the card's,
+    or the CPU fallback's): bake through ``scene_provider`` + async submit
+    + wait (the only sync). Returns ``(images, render_s, phase_timings)``.
 
     Runs on the watchdog's attempt thread, which may be ABANDONED
     mid-wait and finish after a retry already won: all results travel in
@@ -632,14 +669,14 @@ class MicroBatcher:
     attempts were abandoned along the way.
     """
     parent = recorder.current_parent() if recorder is not None else None
-    scene = self._bake_with_span(scene_id, recorder, parent)
+    scene = self._bake_with_span(scene_provider, scene_id, recorder, parent)
     # device_render_seconds must stay DEVICE-window time: the timer runs
     # around submit+wait only — never around retry backoffs, abandoned
     # watchdog waits, or scene bakes.
     t0 = self._clock()
-    handle = self.engine.submit(scene, poses)
+    handle = engine.submit(scene, poses)
     handles.append(handle)
-    out = self.engine.wait(handle)
+    out = engine.wait(handle)
     t1 = self._clock()
     self._record_phases(recorder, parent, t0, handle.timings)
     return out, t1 - t0, handle.timings
@@ -657,11 +694,22 @@ class MicroBatcher:
       # by return value so an attempt thread the watchdog abandoned can
       # never overwrite the winning attempt's accounting.
       def primary_fn():
-        return self._attempt(scene_id, poses, recorder, handles)
+        return self._attempt(self.engine, self.scene_provider, scene_id,
+                             poses, recorder, handles)
 
       if self.resilient is not None:
+        fallback_fn = None
+        if self.fallback_engine is not None:
+          # Bake onto the FALLBACK's device at call time: baking every
+          # scene to the CPU up front would double the host traffic for
+          # an outage that may never happen.
+          def fallback_fn():
+            return self._attempt(self.fallback_engine,
+                                 self.fallback_scene_provider, scene_id,
+                                 poses, recorder, handles)
         out, render_s, phases = self.resilient.run(
-            primary_fn, deadline=flight.deadline, recorder=recorder)
+            primary_fn, fallback_fn=fallback_fn, deadline=flight.deadline,
+            recorder=recorder)
       else:
         out, render_s, phases = primary_fn()
     except Exception as e:  # noqa: BLE001 - forwarded to every caller

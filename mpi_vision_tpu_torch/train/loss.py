@@ -18,6 +18,10 @@ to the target photo, so the renderer's backward runs on every step.
     ``train.loop.fit_resumable`` needs. ``jax.image.resize`` computes its
     resize the same way).
 
+The render and the VGG features carry ``debug.named_scope`` ranges
+(``loss/render``, ``loss/vgg``) where the JAX package has its
+``jax.named_scope``s.
+
 Batch dicts follow the reference dataset contract with NHWC images:
 ``tgt_img_cfw`` [B,4,4] world->target-cam, ``ref_img_wfc`` [B,4,4]
 ref-cam->world, ``tgt_img``/``ref_img`` [B,H,W,3] in [-1,1], ``intrinsics``
@@ -33,6 +37,7 @@ import torch
 
 from mpi_vision_tpu_torch.core import geometry, render
 from mpi_vision_tpu_torch.core.sampling import Convention
+from mpi_vision_tpu_torch.debug import named_scope
 from mpi_vision_tpu_torch.models.stereo_mag import mpi_from_net_output
 from mpi_vision_tpu_torch.train import vgg as vgg_lib
 
@@ -102,7 +107,9 @@ def perceptual_loss(out: torch.Tensor, tgt: torch.Tensor,
     x = resize_bilinear(x, resize)
     y = resize_bilinear(y, resize)
   loss = (x - y).abs().mean()                                 # cell 12:54
-  for i, (fx, fy) in enumerate(zip(vgg(x), vgg(y))):
+  with named_scope("loss/vgg"):
+    feats_x, feats_y = vgg(x), vgg(y)
+  for i, (fx, fy) in enumerate(zip(feats_x, feats_y)):
     loss = loss + (fx - fy).abs().mean() / (1.0 + i)          # cell 12:55-59
   return loss
 
@@ -114,6 +121,7 @@ def vgg_perceptual_loss(mpi_pred: torch.Tensor, batch: Batch,
                         method: str = "fused") -> torch.Tensor:
   """The reference training loss (cell 12): render, then
   ``perceptual_loss`` against the target."""
-  out = render_novel_view(mpi_pred, batch, convention=convention,
-                          method=method)
+  with named_scope("loss/render"):
+    out = render_novel_view(mpi_pred, batch, convention=convention,
+                            method=method)
   return perceptual_loss(out, batch["tgt_img"], vgg, resize)

@@ -90,6 +90,21 @@ def test_scan_covers_the_train_serve_viewer_slice():
     assert name in mods
 
 
+def test_scan_covers_the_degraded_serving_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.debug",
+               "mpi_vision_tpu_torch.obs.events",
+               "mpi_vision_tpu_torch.obs.profile",
+               "mpi_vision_tpu_torch.obs.slo",
+               "mpi_vision_tpu_torch.serve.brownout",
+               "mpi_vision_tpu_torch.serve.faultinject",
+               "mpi_vision_tpu_torch.serve.edge",
+               "mpi_vision_tpu_torch.serve.edge.cache",
+               "mpi_vision_tpu_torch.serve.edge.lattice",
+               "mpi_vision_tpu_torch.serve.edge.warp"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
