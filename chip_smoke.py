@@ -161,9 +161,41 @@ Phases:
      by ``upsample_nearest``; at L4 interactive and background requests
      get 503 with ``Retry-After``; the compose kernel launches; renders/s
      at L0, L1 and L2.
+ 13. the reference's helper surface, config 5's tiny U-Net and the serving
+     flight recorder (the slice's main paths), each window with the launch
+     counts zeroed just before and read just after and no plain version
+     run in it. (a) ``compat.mpi_render_view_torch`` renders
+     ``tests/fixtures/scene_009`` (640 x 400 x 10) and a 1080p x 32 MPI,
+     ``compat.over_composite`` a 32-plane 1080p list and its stack,
+     ``plane_sweep_torch`` and ``format_network_input_torch`` run at 224 px
+     x 10 planes: the renders launch ``render_fused`` once each, the
+     composites the compose kernel, and each is 0.0 from ``plain_render``
+     / ``plain_composite`` on the same planes and homographies; compat's
+     1080p render ms beside the kernel's alone. (b) BASELINE config 5:
+     ``TinyPlaneUNet`` on one synthetic 64 x 64 x 8 scene, Adam at 1e-3,
+     150 steps of the L2 render loss through ``method="fused_pallas"``:
+     the loss falls, every step launches the forward kernel, A and B once,
+     one step's gradients with the kernel backward within 1e-4 of the
+     plain backward's; train seconds and inference frames/s (20 calls).
+     (c) ``RenderService`` on phase 12's 1080p x 32 scene over HTTP with
+     the ``serve`` CLI's ``--slo-quantile 0.99 --tsdb-interval-s 0.25
+     --attrib --incident-dir --incident-profile 0.5 --ship-url`` (an
+     in-process ``ShipSink``): 3 clients stream ``POST /render`` while
+     ``/metrics`` is scraped at ~4 Hz and parsed; slow dispatches from
+     ``serve/faultinject.py`` fire the quantile SLO and exactly one
+     incident bundle follows, whose profile names ``render_fused_kernel``;
+     the sink stops (batches spool) and restarts (the spool drains in
+     order, the bundle arrives); every request answers 200, ``/metrics``'
+     render counters equal ``/stats``, the attribution ledger's cells
+     reconcile with the metrics' totals, ``/debug/tsdb`` has points;
+     renders/s with the recorder off and on, scrape p50, capture ms,
+     shipped bytes. (d) ``TRAIN_STEPS`` steps at ``TrainConfig()`` with
+     ``--ckpt --metrics-port 0``: a scrape mid-run shows the
+     ``mpi_train_*`` families and the steps run; the step ms beside phase
+     7's.
 Then the ``{"kernels": [...]}`` line (each row with its launches in
-phase 11's and phase 12's windows), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+phase 11's, phase 12's and phase 13's windows), the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2313,6 +2345,544 @@ def phase12_degraded(torch, dev, drill, tscene, workdir: str) -> dict:
   log(f"degraded: phase 12 took {out['phase_s']:.1f} s")
   return out
 
+
+SCENE_009 = os.path.join(ROOT, "tests", "fixtures", "scene_009")
+# Phase 13 (c): the quantile objective the fault must break, and the
+# burst that feeds it.
+SLO_LATENCY_MS = 500.0
+FAULT_SLOW_S = 0.8
+RECORDER_CLIENTS = 3
+# Phase 13 (b): bench/config5_tiny_unet.py's default step count.
+CONFIG5_STEPS = 150
+
+
+def phase13_flight(torch, dev, drill, workdir: str, step_ms7: float) -> dict:
+  """The reference's helper surface, config 5's tiny U-Net and the serving
+  flight recorder on the card (see the module docstring). ``drill`` is
+  ``drill_scene()``'s 1080p x 32 scene, ``step_ms7`` phase 7's step."""
+  from mpi_vision_tpu_torch import cli, compat
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.models import tiny_unet
+  from mpi_vision_tpu_torch.obs import parse_metrics_text
+  from mpi_vision_tpu_torch.obs.ship import make_sink_server
+  from mpi_vision_tpu_torch.serve import (
+      Fault,
+      FaultyEngine,
+      RenderEngine,
+      RenderService,
+      make_http_server,
+  )
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, co.plain_composite,
+            rb.plain_rewarp_composite_vjp, rb.plain_adjoint_warp)
+  launches: dict = {}
+
+  def zero():
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+
+  def read(name: str) -> dict:
+    """The launches since ``zero()`` as window ``name``; no plain version
+    may have run in it."""
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    launches[name] = counts
+    log(f"flight [{name}]: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}")
+    check(not any(plain.values()), f"{name}: a plain version ran: {plain}")
+    return counts
+
+  out: dict = {}
+  t_phase = time.perf_counter()
+
+  # -- (a) the reference's helper surface on the card ----------------------
+  _, mpi9, depths9, k9 = cli.mpi_dir_scene(SCENE_009)
+  h9, w9, p9 = mpi9.shape[:3]
+  pose9 = pan_pose(3.0, 0.04, -0.02)
+  gen = torch.Generator(device=dev).manual_seed(13)
+  big = torch.rand((1, HEIGHT, WIDTH, PLANES, 4), generator=gen, device=dev)
+  depths = torch.from_numpy(
+      np.geomspace(100.0, 1.0, PLANES).astype(np.float32)).to(dev)
+  k_big = torch.tensor([[[0.6 * WIDTH, 0, WIDTH / 2],
+                         [0, 0.6 * WIDTH, HEIGHT / 2], [0, 0, 1]]],
+                       device=dev)
+  pose_big = torch.from_numpy(pan_pose(5.0, 0.05)[None]).to(dev)
+  stack = torch.rand((PLANES, 1, HEIGHT, WIDTH, 4), generator=gen,
+                     device=dev)
+  planes_list = list(stack.unbind(0))
+  size, p10 = 224, 10
+  img = torch.rand((1, size, size, 3), generator=gen, device=dev) * 2 - 1
+  srcs = torch.rand((2, 1, size, size, 3), generator=gen, device=dev) * 2 - 1
+  sweep_pose = torch.from_numpy(pan_pose(1.0, 0.03)[None]).to(dev)
+  src_poses = torch.stack([sweep_pose, torch.from_numpy(
+      pan_pose(-1.0, -0.02)[None]).to(dev)])
+  k224 = torch.tensor([[[0.5 * size, 0, size / 2],
+                        [0, 0.5 * size, size / 2], [0, 0, 1]]], device=dev)
+  d10 = compat.inv_depths(1.0, 100.0, p10)
+  zero()
+  f9 = compat.mpi_render_view_torch(mpi9[None], pose9[None], depths9,
+                                    k9[None])
+  f_big = compat.mpi_render_view_torch(big, pose_big, depths, k_big)
+  c_list = compat.over_composite(planes_list)
+  c_stack = compat.over_composite(stack)
+  psv = compat.plane_sweep_torch(img, d10, sweep_pose, k224)
+  net_in = compat.format_network_input_torch(
+      img, srcs, torch.eye(4, device=dev)[None], src_poses, d10, k224)
+  torch.cuda.synchronize()
+  counts = read("compat")
+  check(counts["render_mpi_fused"] == 2 and counts["over_composite_pallas"]
+        == 2, f"compat did not run the kernels once a call: {counts}")
+  check(all(t.device.type == "cuda" for t in (f9, f_big, c_list, psv,
+                                              net_in)),
+        "a compat result is not on the card")
+  check(f9.shape == (1, h9, w9, 3) and f_big.shape == (1, HEIGHT, WIDTH, 3)
+        and psv.shape == (1, size, size, 3 * p10)
+        and net_in.shape == (1, size, size, 3 + 3 * p10 * 2),
+        "compat shapes")
+  # Each held to the plain version on the same planes and homographies.
+  errs = {}
+  for name, mpi, pose, dep, k, frame in (
+      ("scene_009", torch.from_numpy(mpi9[None]).to(dev),
+       torch.from_numpy(pose9[None]).to(dev),
+       torch.from_numpy(depths9).to(dev), torch.from_numpy(k9[None]).to(dev),
+       f9),
+      ("1080p_x32", big, pose_big, depths, k_big, f_big)):
+    hh, ww = mpi.shape[1:3]
+    homs = render_fused.pixel_homographies(
+        pose, dep, k, hh, ww, Convention.REF_HOMOGRAPHY
+    ).transpose(0, 1).contiguous()
+    want = render_fused.plain_render(mpi[0].movedim(2, 0).contiguous(), homs)
+    errs[name] = float((frame - want).abs().max())
+  want_c = co.plain_composite(stack)
+  errs["composite_list"] = float((c_list - want_c).abs().max())
+  errs["composite_stack"] = float((c_stack - want_c).abs().max())
+  cpu_psv = compat.plane_sweep_torch(img.cpu(), d10.cpu(), sweep_pose.cpu(),
+                                     k224.cpu(), device="cpu")
+  errs["plane_sweep_vs_cpu"] = float((psv.cpu() - cpu_psv).abs().max())
+  log(f"flight: compat vs plain max_abs_err {json.dumps(errs)}")
+  for name in ("scene_009", "1080p_x32", "composite_list",
+               "composite_stack"):
+    check(errs[name] == 0.0, f"compat {name} is off its plain version by "
+          f"{errs[name]}")
+  check(errs["plane_sweep_vs_cpu"] <= 1e-3 and bool(
+      torch.isfinite(net_in).all()), f"plane sweep {errs}")
+  mpi_big = big[0].movedim(2, 0).contiguous()
+  homs_big = render_fused.pixel_homographies(
+      pose_big, depths, k_big, HEIGHT, WIDTH, Convention.REF_HOMOGRAPHY
+  ).transpose(0, 1).contiguous()
+  compat_ms = cuda_ms(torch, lambda: compat.mpi_render_view_torch(
+      big, pose_big, depths, k_big), 10)
+  direct_ms = cuda_ms(torch, lambda: render_fused.render_mpi_fused(
+      mpi_big, homs_big), 10)
+  log(f"flight: compat 1080p x 32 render {compat_ms:.3f} ms vs the kernel "
+      f"alone {direct_ms:.3f} ms (CUDA events)")
+  out["compat"] = {"max_abs_err": errs, "render_ms": compat_ms,
+                   "render_fused_ms": direct_ms,
+                   "surface_overhead_ms": compat_ms - direct_ms}
+  del big, stack, planes_list, c_list, c_stack, want_c, mpi_big, f_big
+  torch.cuda.empty_cache()
+
+  # -- (b) BASELINE config 5: the tiny U-Net through the render loss -------
+  root = os.path.join(workdir, "config5")
+  realestate.synthesize_dataset(root, num_scenes=1, frames=3, img_size=64,
+                                seed=0)
+  ds = realestate.RealEstateDataset(root, img_size=64, num_planes=8,
+                                    is_valid=True, device=dev)
+  batch = next(realestate.iterate_batches(ds, shuffle=False))
+  torch.manual_seed(0)
+  model = tiny_unet.TinyPlaneUNet(8).to(dev)
+  psv5 = tiny_unet.psv_from_net_input(batch["net_input"], 8)
+  rel = batch["tgt_img_cfw"] @ batch["ref_img_wfc"]
+
+  def render5(mpi):
+    return render.render_mpi(mpi, rel, batch["mpi_planes"][0],
+                             batch["intrinsics"], method="fused_pallas")
+
+  opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+  losses = []
+  zero()
+  t0 = time.perf_counter()
+  for _ in range(CONFIG5_STEPS):
+    opt.zero_grad()
+    loss = torch.mean((render5(model(psv5)) - batch["tgt_img"]) ** 2)
+    loss.backward()
+    opt.step()
+    losses.append(loss.detach())
+  losses = [float(v) for v in torch.stack(losses).cpu()]
+  train_s = time.perf_counter() - t0
+  counts = read("config5")
+  check(counts["render_mpi_fused"] == counts["rewarp_composite_vjp"]
+        == counts["adjoint_warp"] == CONFIG5_STEPS,
+        f"config 5: a step did not launch the forward, A and B: {counts}")
+  check(np.isfinite(losses).all() and losses[-1] < losses[0],
+        f"config 5 did not overfit: {losses[0]} -> {losses[-1]}")
+  # One step's gradients, the kernel backward against the plain one.
+  params = list(model.parameters())
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    mpi5 = model(psv5)
+    planes5 = mpi5[0].movedim(2, 0).contiguous()
+    homs5 = render_fused.pixel_homographies(
+        rel, batch["mpi_planes"][0], batch["intrinsics"], 64, 64,
+        Convention.REF_HOMOGRAPHY).transpose(0, 1).contiguous()
+    leaf = planes5.detach()
+    frame = render_fused.render_mpi_fused(leaf, homs5).detach()
+    frame.requires_grad_(True)
+    torch.mean((frame - batch["tgt_img"]) ** 2).backward()
+    g = frame.grad.contiguous()
+    d_kernel = rb.backward_planes(leaf, homs5, g)
+    d_plain = rb.plain_adjoint_warp(
+        rb.plain_rewarp_composite_vjp(leaf, homs5, g), homs5, shared=True)
+    w_kernel = torch.autograd.grad(planes5, params, d_kernel,
+                                   retain_graph=True)
+    w_plain = torch.autograd.grad(planes5, params, d_plain)
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  scale = float(d_plain.abs().max())
+  err_planes = float((d_kernel - d_plain).abs().max())
+  err_weights = max(float((a - b).abs().max() / b.abs().max().clamp(
+      min=1e-30)) for a, b in zip(w_kernel, w_plain))
+  check(scale > 0 and err_planes <= 1e-4 * scale and err_weights <= 1e-4,
+        f"config 5 gradients: planes {err_planes} of {scale}, weights "
+        f"{err_weights}")
+
+  def infer():
+    with torch.no_grad():
+      return render5(model(psv5))
+
+  infer()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(20):
+    infer()
+  torch.cuda.synchronize()
+  infer_s = (time.perf_counter() - t0) / 20
+  log(f"flight: config 5 {CONFIG5_STEPS} steps in {train_s:.2f} s, loss "
+      f"{losses[0]:.5f}"
+      f" -> {losses[-1]:.5f}; kernel vs plain backward: planes "
+      f"{err_planes:.3e} of {scale:.3e}, weights relative {err_weights:.3e};"
+      f" inference {infer_s * 1e3:.3f} ms = {1.0 / infer_s:.1f} frames/s "
+      f"(target 30)")
+  out["config5"] = {"train_s": train_s, "first_loss": losses[0],
+                    "final_loss": losses[-1], "grad_err_planes": err_planes,
+                    "grad_err_weights_rel": err_weights,
+                    "infer_ms": infer_s * 1e3, "frames_per_s": 1.0 / infer_s}
+  del model, opt, psv5, batch, ds
+  torch.cuda.empty_cache()
+
+  # -- (c) serving under the flight recorder --------------------------------
+  sink_dir = os.path.join(workdir, "sink")
+  sink_server, sink = make_sink_server(sink_dir, port=0)
+  sink_port = sink_server.server_address[1]
+  sink_thread = threading.Thread(target=sink_server.serve_forever,
+                                 daemon=True)
+  sink_thread.start()
+  sink_bytes = 0
+  flags = ["serve", "--slo-quantile", "0.99", "--slo-latency-ms",
+           str(SLO_LATENCY_MS), "--slo-latency-target", "0.5",
+           "--slo-fast-window-s", "10", "--slo-slow-window-s", "30",
+           "--tsdb-interval-s", "0.25", "--attrib",
+           "--incident-dir", os.path.join(workdir, "incidents"),
+           "--incident-profile", "0.5",
+           "--profile-dir", os.path.join(workdir, "profiles"),
+           "--ship-url", f"http://127.0.0.1:{sink_port}/ingest",
+           "--ship-interval-s", "0.25",
+           "--ship-spool-dir", os.path.join(workdir, "spool")]
+  recorder_kw = cli._degraded_mode_kwargs(cli.build_parser().parse_args(
+      flags))
+  check(recorder_kw["slo"].quantile == 0.99, "the CLI lost --slo-quantile")
+  base_kw = dict(max_batch=8, max_wait_ms=20.0, max_inflight=4,
+                 cache_bytes=4 << 30)
+  burst_poses = [pan_pose(0.5 * i, 0.002 * i) for i in range(32)]
+
+  def burst_rps(svc):
+    t0 = time.perf_counter()
+    futs = [svc.render_async("drill_000", p) for p in burst_poses]
+    for f in futs:
+      f.result(300)
+    return len(burst_poses) / (time.perf_counter() - t0)
+
+  off = RenderService(device="cuda", convention=Convention.EXACT,
+                      slo=None, **base_kw)
+  eng = FaultyEngine(RenderEngine(method="fused_pallas",
+                                  convention=Convention.EXACT,
+                                  device="cuda", max_inflight=16))
+  svc = RenderService(engine=eng, **base_kw, **recorder_kw)
+  httpd = None
+  stop = threading.Event()
+  running = threading.Event()  # cleared: the HTTP clients pause
+  running.set()
+  idle = [threading.Event() for _ in range(RECORDER_CLIENTS)]
+  statuses: list = []
+  scrape_ms: list = []
+  scrape_errors: list = []
+  clients: list = []
+  try:
+    for s in (off, svc):
+      s.add_scene("drill_000", *drill)
+      s.warmup()
+    # The same burst with the recorder off and on, in turns (the first
+    # round pays each service's first-use pinned buffers).
+    rps_off, rps_on = [], []
+    for _ in range(4):
+      rps_off.append(burst_rps(off))
+      rps_on.append(burst_rps(svc))
+    off.close()
+    httpd = make_http_server(svc, port=0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def client(k):
+      i = 0
+      while not stop.is_set():
+        if not running.is_set():
+          idle[k].set()
+          running.wait()
+          idle[k].clear()
+          continue
+        status, _, frame = fetch(port, "drill_000",
+                                 pan_pose(0.2 * i + k, 0.01 * k))
+        statuses.append(status)
+        i += 1
+
+    def scraper():
+      while not stop.is_set():
+        t0 = time.perf_counter()
+        try:
+          with urllib.request.urlopen(
+              f"http://127.0.0.1:{port}/metrics", timeout=60) as resp:
+            parse_metrics_text(resp.read().decode())
+          scrape_ms.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported on the main thread
+          scrape_errors.append(repr(e))
+        stop.wait(0.25)
+
+    zero()
+    clients = [threading.Thread(target=client, args=(k,))
+               for k in range(RECORDER_CLIENTS)]
+    clients.append(threading.Thread(target=scraper))
+    for t in clients:
+      t.start()
+    time.sleep(4.0)
+    check(not svc.slo.alerts_firing(), f"an SLO alert fired before the "
+          f"fault: {svc.slo.alerts_firing()}")
+    # One slow dispatch of a full batch, the clients held meanwhile, then
+    # the card is fast again: the profile the incident captures sees
+    # live traffic.
+    running.clear()
+    for ev in idle:
+      check(ev.wait(60), "a client did not pause")
+    eng.inject(Fault("slow", seconds=FAULT_SLOW_S))
+    slow = [svc.render_async("drill_000", pan_pose(0.1 * i, 0.02))
+            for i in range(8)]
+    for f in slow:
+      f.result(300)
+    check(eng.injected["slow"] == 1, f"faults {eng.injected}")
+    running.set()
+    deadline = time.perf_counter() + 60
+    index: list = []
+    while time.perf_counter() < deadline:
+      _, body = get_json(port, "/debug/incidents")
+      index = body["incidents"]
+      if index:
+        break
+      time.sleep(0.1)
+    check(index, "no incident bundle after the latency fault")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 2.0 and not sink.stats()["received"]:
+      time.sleep(0.05)
+    # The sink goes away: batches spool; it comes back: the spool drains.
+    received_before = sink.stats()["received"]
+    sink_bytes += sink.stats()["bytes_received"]
+    sink_server.shutdown()
+    sink_server.server_close()
+    sink_thread.join(30)
+    t0 = time.perf_counter()
+    while (svc.shipper.stats()["spool_files"] < 2
+           and time.perf_counter() - t0 < 30):
+      time.sleep(0.1)
+    spooled = svc.shipper.stats()["spool_files"]
+    sink_server, sink = make_sink_server(sink_dir, port=sink_port)
+    sink_thread = threading.Thread(target=sink_server.serve_forever,
+                                   daemon=True)
+    sink_thread.start()
+    t0 = time.perf_counter()
+    while (svc.shipper.stats()["spool_files"] > 0
+           and time.perf_counter() - t0 < 60):
+      time.sleep(0.1)
+    stop.set()
+    for t in clients:
+      t.join(300)
+    counts = read("serve")
+    time.sleep(0.4)  # past the exposition cache's TTL
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+      metrics = parse_metrics_text(resp.read().decode())
+    _, stats = get_json(port, "/stats")
+    _, attrib = get_json(port, "/debug/attrib")
+    _, tsdb = get_json(port, "/debug/tsdb?family=mpi_serve_requests_total")
+    _, index_body = get_json(port, "/debug/incidents")
+    _, bundle = get_json(port, f"/debug/incidents?id={index[0]['id']}")
+    ship_stats = svc.shipper.stats()
+  finally:
+    stop.set()
+    running.set()
+    for t in clients:
+      t.join(300)
+    eng.release.set()
+    if httpd is not None:
+      httpd.shutdown()
+      httpd.server_close()
+    off.close()
+    svc.close()
+    sink_server.shutdown()
+    sink_server.server_close()
+    sink_thread.join(30)
+  sink_bytes += sink.stats()["bytes_received"]
+
+  def value(family, sample=None, labels=()):
+    return metrics[family]["samples"][(sample or family, labels)]
+
+  check(counts["render_mpi_fused"] > 0, "serve: the kernel never launched")
+  check(statuses and all(s == 200 for s in statuses),
+        f"a request failed: {sorted(set(statuses))}")
+  check(not any(stats["errors"].values()) and stats["rejected"] == 0,
+        f"errors {stats['errors']}, rejected {stats['rejected']}")
+  check(not scrape_errors and len(scrape_ms) >= 8,
+        f"/metrics scrapes: {len(scrape_ms)} ok, errors {scrape_errors[:2]}")
+  check(value("mpi_serve_requests_total") == stats["requests"]
+        and value("mpi_serve_batches_total") == stats["batches"],
+        "/metrics render counters differ from /stats")
+  cons = attrib["conservation"]
+  check(cons["ok"] and cons["request_delta"] == 0,
+        f"attribution conservation {cons}")
+  series = tsdb["series"]
+  check(series and sum(len(s["points"]) for s in series) >= 2,
+        f"/debug/tsdb returned no points: {tsdb}")
+  check(len(index_body["incidents"]) == 1, f"{len(index_body['incidents'])}"
+        " incident bundles, not exactly one")
+  check(bundle["alert"]["alert"] == "latency_p99", f"bundle {bundle['alert']}")
+  prof = bundle.get("profile") or {}
+  check("logdir" in prof, f"the bundle carries no profile: {prof}")
+  with open(os.path.join(prof["logdir"], "trace.json")) as fh:
+    names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+  kernel_names = sorted(n for n in names if "render_fused_kernel" in n)
+  check(kernel_names, f"the incident's profile names no "
+        f"render_fused_kernel: {len(names)} names, e.g. "
+        f"{sorted(names)[:12]}")
+  # Every delivered batch, in the sink's order: the spool drained oldest
+  # first and nothing was lost.
+  batches = []
+  for name in sorted(os.listdir(sink_dir)):
+    if name.startswith("batch-") and name.endswith(".json"):
+      with open(os.path.join(sink_dir, name)) as fh:
+        batches.append(json.load(fh))
+  sent = [b["sent_at"] for b in batches]
+  shipped_incidents = [bd["id"] for b in batches for item in b["items"]
+                       if item["kind"] == "incidents"
+                       for bd in item["bundles"]]
+  check(spooled >= 2 and ship_stats["spooled"] >= spooled
+        and ship_stats["spool_files"] == 0 and ship_stats["spool_dropped"]
+        == 0, f"spool: {spooled} spooled, stats {ship_stats}")
+  check(sent == sorted(sent), "the spool did not drain in order")
+  check(shipped_incidents == [index[0]["id"]],
+        f"shipped bundles {shipped_incidents}")
+  rps = {"recorder_off": rps_off, "recorder_on": rps_on}
+  capture_ms = bundle["capture_s"] * 1e3
+  log(f"flight: renders/s {json.dumps(rps)}; /metrics scrape p50 "
+      f"{statistics.median(scrape_ms):.2f} ms over {len(scrape_ms)}; "
+      f"{len(statuses)} requests, all 200; incident {bundle['id']} "
+      f"({bundle['alert']['alert']}) captured in {capture_ms:.1f} ms with "
+      f"a profile naming {kernel_names}; spool {spooled} batches, "
+      f"{received_before} batches before the outage, {len(batches)} "
+      f"delivered, {sink_bytes} bytes shipped; attribution {cons}")
+  out["serve"] = {"renders_per_s": rps,
+                  "metrics_scrape_ms_p50": statistics.median(scrape_ms),
+                  "scrapes": len(scrape_ms), "requests": len(statuses),
+                  "incident_capture_ms": capture_ms,
+                  "profile_kernels": kernel_names,
+                  "spooled_batches": spooled,
+                  "batches_delivered": len(batches),
+                  "shipped_bytes": sink_bytes,
+                  "attrib_conservation": cons}
+
+  # -- (d) training telemetry at TrainConfig() -------------------------------
+  pf = os.path.join(workdir, "train_metrics_port")
+  args = cli.build_parser().parse_args(
+      ["train", "--synthetic", "--synthetic-scenes", str(TRAIN_STEPS),
+       "--epochs", "1", "--dataset", os.path.join(workdir, "re10k"),
+       "--device", "cuda", "--no-valid",
+       "--ckpt", os.path.join(workdir, "telemetry_ckpt"), "--save-every",
+       "2", "--metrics-port", "0", "--metrics-port-file", pf])
+  scrapes: list = []
+  done = threading.Event()
+
+  def train_scraper():
+    while not done.is_set() and not os.path.exists(pf):
+      time.sleep(0.005)
+    while not done.is_set():
+      try:
+        with open(pf) as fh:
+          mport = int(fh.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=30) as resp:
+          scrapes.append(parse_metrics_text(resp.read().decode()))
+      except (OSError, ValueError):
+        pass
+      time.sleep(0.05)
+
+  scraper_thread = threading.Thread(target=train_scraper)
+  scraper_thread.start()
+  zero()
+  try:
+    summary = cli.cmd_train(args)
+  finally:
+    done.set()
+    scraper_thread.join(60)
+  torch.cuda.synchronize()
+  counts = read("train")
+  steps = summary["steps"]
+  check(steps == TRAIN_STEPS and counts["render_mpi_fused"] == steps
+        and counts["rewarp_composite_vjp"] == steps
+        and counts["adjoint_warp"] == steps,
+        f"train: {steps} steps, launches {counts}")
+  seen = [s["mpi_train_steps_total"]["samples"][
+      ("mpi_train_steps_total", ())] for s in scrapes]
+  check(seen and any(0 < v <= steps for v in seen),
+        f"no mid-run scrape saw a step: {seen[:5]}...")
+  last = scrapes[-1]
+  families = sorted(f for f in last if f.startswith("mpi_train_"))
+  step_s = last["mpi_train_step_seconds_total"]["samples"][
+      ("mpi_train_step_seconds_total", ())]
+  step_ms = step_s / max(seen[-1], 1) * 1e3
+  p50_ms = last["mpi_train_step_quantile_seconds"]["samples"][
+      ("mpi_train_step_quantile_seconds", (("q", "0.5"),))] * 1e3
+  log(f"flight: train telemetry {len(scrapes)} scrapes, steps seen "
+      f"{sorted(set(seen))}; {len(families)} mpi_train_* families; step "
+      f"p50 {p50_ms:.2f} ms, mean {step_ms:.2f} ms (telemetry: the loss "
+      f"read included; --ckpt runs cuDNN deterministic) vs phase 7's "
+      f"{step_ms7:.2f} ms; summary telemetry {summary.get('telemetry')}")
+  check("mpi_train_loss" in families and summary["telemetry"]["steps"]
+        == steps, f"train telemetry: {families}, {summary.get('telemetry')}")
+  out["train"] = {"scrapes": len(scrapes), "steps_seen": sorted(set(seen)),
+                  "families": len(families), "step_ms_mean": step_ms,
+                  "step_ms_p50": p50_ms,
+                  "phase7_step_ms": step_ms7}
+  out["launches"] = launches
+  out["phase_s"] = time.perf_counter() - t_phase
+  log(f"flight: phase 13 took {out['phase_s']:.1f} s")
+  return out
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -2656,9 +3226,17 @@ def main() -> int:
   with tempfile.TemporaryDirectory(prefix="chip_smoke_degraded_") as workdir:
     degraded = phase12_degraded(torch, dev, drill_future.result(),
                                 tiled_future.result(), workdir)
-  scene_pool.shutdown()
   log(json.dumps({"times_degraded": {
       "card": card, **degraded,
+      "seconds_total": time.perf_counter() - t_start}}))
+
+  # -- 13. the helper surface, config 5 and the flight recorder -------------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as workdir:
+    flight = phase13_flight(torch, dev, drill_future.result(), workdir,
+                            step_times["step_ms"])
+  scene_pool.shutdown()
+  log(json.dumps({"times_flight": {
+      "card": card, **flight,
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- result lines --------------------------------------------------------
@@ -2706,6 +3284,9 @@ def main() -> int:
     row["phase12_launches"] = {
         window: counts[counters[row["name"]]]
         for window, counts in degraded["launches"].items()}
+    row["phase13_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in flight["launches"].items()}
   # The compose kernel against its plain version at brownout's shapes
   # (thinned planes, 540-row targets).
   comp_row = next(row for row in rows if row["name"] == "over_composite")

@@ -255,17 +255,22 @@ class CheckpointStore:
       stage ``"pre_rename"`` (staging dir fully written and fsynced) and
       ``"post_rename"`` (checkpoint published). ``TrainFaultSource``
       plugs in here to simulate kill-mid-save and corrupt-after-write.
+    events: optional ``obs.events.EventLog`` — the store emits its
+      lifecycle (``ckpt_save``, ``ckpt_restore``, ``ckpt_quarantine``) at
+      the source, as the JAX package's store does.
   """
 
   def __init__(self, root: str, keep: int = 3,
                clock: Callable[[], float] = time.time,
-               fault_hook: Callable[[str, str], None] | None = None):
+               fault_hook: Callable[[str, str], None] | None = None,
+               events=None):
     if keep < 1:
       raise ValueError(f"keep must be >= 1, got {keep}")
     self.root = os.path.abspath(root)
     self.keep = int(keep)
     self.clock = clock
     self._fault_hook = fault_hook
+    self.events = events
     # Cost of the newest PUBLISHED save (wall clock, same base as the
     # manifest timestamps).
     self.last_save_s = 0.0
@@ -436,6 +441,11 @@ class CheckpointStore:
     self.saves += 1
     self.last_save_s = max(self.clock() - t_save, 0.0)
     self.last_save_bytes = sum(a.nbytes for a in arrays.values())
+    if self.events is not None:
+      self.events.emit("ckpt_save", step=step,
+                       bytes=self.last_save_bytes,
+                       seconds=round(self.last_save_s, 6),
+                       reason=str((meta or {}).get("reason", "")))
     if self._fault_hook is not None:
       self._fault_hook("post_rename", final)
     self.gc()
@@ -583,6 +593,8 @@ class CheckpointStore:
     os.rename(src, dst)
     _fsync_dir(self.root)
     self.quarantined += 1
+    if self.events is not None:
+      self.events.emit("ckpt_quarantine", step=int(step), reason=reason)
     return dst
 
   def restore(self, step: int | None = None, template=None,
@@ -628,5 +640,7 @@ class CheckpointStore:
                           manifest=manifest, path=path)
       if template is not None:
         restored.tree(template)  # raises KeyError on structure mismatch
+      if self.events is not None:
+        self.events.emit("ckpt_restore", step=restored.step)
       return restored
     return None

@@ -8,7 +8,10 @@
     sweeps the learning rate first; with ``--ckpt`` the run is crash-safe
     (ckpt/: atomic checkpoints, NaN rollback, preemption saves, bit-exact
     ``--resume``); ``--bf16`` runs the U-Net and VGG convs in bfloat16;
-    ``--export-html`` writes the viewer of a validation MPI.
+    ``--export-html`` writes the viewer of a validation MPI;
+    ``--metrics-port`` serves the run's ``mpi_train_*`` telemetry over
+    HTTP, ``--metrics-log`` and ``--event-log`` append JSONL (all with
+    ``--ckpt``).
   * ``export-viewer`` — bake a PNG MPI directory (e.g. the repo's
     ``tests/fixtures/scene_009``) into the self-contained HTML viewer.
   * ``serve`` — run the batched render-serving subsystem (serve/): scene
@@ -23,7 +26,13 @@
     engine while the breaker refuses the card), ``--edge-cache`` (view-cell
     frame reuse with ETags), ``--slo`` (on by default) and ``--brownout``
     (the degradation ladder; picks ``--method pallas``), ``--event-log``,
-    ``--profile-dir`` (``/debug/profile``).
+    ``--profile-dir`` (``/debug/profile``). The flight recorder:
+    ``/metrics`` always, ``--slo-quantile``/``--slo-per-scene``,
+    ``--alert-hook``, ``--tsdb-interval-s`` (``/debug/tsdb``),
+    ``--ship-url`` (off-host shipping with a disk spool), ``--attrib``
+    (``/debug/attrib``), ``--incident-dir`` (``/debug/incidents``).
+  * ``ship-sink`` — the telemetry collector a ``serve --ship-url`` posts
+    to: each delivered batch lands as one JSON file in ``--dir``.
 
 Prints a one-line JSON summary on stdout (diagnostics on stderr).
 """
@@ -88,10 +97,21 @@ def cmd_train(args: argparse.Namespace) -> dict:
         ("--nan-guard/--no-nan-guard", args.nan_guard is not None),
         ("--async-save", args.async_save),
         ("--stall-timeout-s", args.stall_timeout_s > 0),
+        ("--metrics-port", args.metrics_port is not None),
+        ("--metrics-log", bool(args.metrics_log)),
+        ("--event-log", bool(args.event_log)),
         ("--inject-fault", bool(args.inject_fault))) if on]
     if wants_ckpt:
       raise SystemExit(
           f"{', '.join(wants_ckpt)} require(s) --ckpt <dir>")
+  if args.metrics_port is not None and args.metrics_port < 0:
+    raise SystemExit(
+        f"--metrics-port must be >= 0 (0 = ephemeral), got "
+        f"{args.metrics_port}")
+  if args.metrics_port_file and args.metrics_port is None:
+    # The port file is only ever written by the metrics listener; a
+    # supervisor waiting on it would hang forever.
+    raise SystemExit("--metrics-port-file requires --metrics-port")
   fault_source = None
   if args.inject_fault:
     # Parse at the door: a typo'd fault spec must fail the invocation,
@@ -193,6 +213,8 @@ def cmd_train(args: argparse.Namespace) -> dict:
   t0 = time.time()
   all_losses, valid_losses = [], []
   ckpt_report = None
+  telemetry = None
+  metrics_port = None
 
   def log_epoch(epoch_state, epoch, losses):
     if not losses:
@@ -235,11 +257,30 @@ def cmd_train(args: argparse.Namespace) -> dict:
           epoch_ds, batch_size=cfg.data.batch_size,
           rng=np.random.default_rng([args.seed, 202, epoch]), skip=skip))
 
+    # Training telemetry: the run exports mpi_train_* like a serve
+    # backend — a stdlib /metrics listener plus an optional JSONL sink —
+    # and lifecycle events (saves, restores, quarantines, rollbacks,
+    # preemptions, stalls) land in a bounded event log served at
+    # /debug/events and optionally appended to --event-log.
+    ev, metrics_httpd = None, None
+    if args.metrics_port is not None or args.metrics_log:
+      from mpi_vision_tpu_torch.train import telemetry as telemetry_mod
+
+      telemetry = telemetry_mod.TrainMetrics(
+          sink=(telemetry_mod.file_metrics_sink(args.metrics_log)
+                if args.metrics_log else None))
+    if args.event_log or args.metrics_port is not None:
+      from mpi_vision_tpu_torch.obs import events as events_mod
+
+      ev = events_mod.EventLog(
+          sink=events_mod.file_sink(args.event_log)
+          if args.event_log else None)
     store = CheckpointStore(
         os.path.abspath(args.ckpt),
         keep=args.keep if args.keep is not None else 3,
         fault_hook=(fault_source.store_hook
-                    if fault_source is not None else None))
+                    if fault_source is not None else None),
+        events=ev)
     if args.async_save:
       # Background-thread serialization: the step loop keeps training
       # while the previous state hashes/serializes/fsyncs; the loop
@@ -250,18 +291,42 @@ def cmd_train(args: argparse.Namespace) -> dict:
     def on_stall(idle):
       _log(f"train: WATCHDOG no step completed in {idle:.0f}s "
            "(device hang?)")
+      if ev is not None:
+        ev.emit("stall", idle_s=round(idle, 3))
 
     watchdog = (StallWatchdog(args.stall_timeout_s, on_stall=on_stall)
                 if args.stall_timeout_s > 0 else None)
-    with PreemptionGuard() as preemption:
-      state, ckpt_report = train_loop.fit_resumable(
-          state, cfg.epochs, make_batches, store, step=step,
-          save_every=args.save_every,
-          meta={"model": cfg.model_meta(), "seed": args.seed},
-          resume="auto" if args.resume else "never",
-          nan_guard=None if args.nan_guard is False else NanGuard(),
-          watchdog=watchdog, preemption=preemption,
-          fault_source=fault_source, on_epoch=log_epoch, log=_log)
+    if args.metrics_port is not None:
+      import threading
+
+      from mpi_vision_tpu_torch.train.telemetry import (
+          make_train_metrics_server,
+      )
+
+      metrics_httpd = make_train_metrics_server(
+          telemetry, events=ev, host="127.0.0.1", port=args.metrics_port)
+      metrics_port = metrics_httpd.server_address[1]
+      if args.metrics_port_file:
+        _write_port_file(args.metrics_port_file, metrics_port)
+      threading.Thread(target=metrics_httpd.serve_forever,
+                       daemon=True).start()
+      _log(f"train: metrics on http://127.0.0.1:{metrics_port} "
+           "(/metrics, /stats, /healthz, /debug/events)")
+    try:
+      with PreemptionGuard() as preemption:
+        state, ckpt_report = train_loop.fit_resumable(
+            state, cfg.epochs, make_batches, store, step=step,
+            save_every=args.save_every,
+            meta={"model": cfg.model_meta(), "seed": args.seed},
+            resume="auto" if args.resume else "never",
+            nan_guard=None if args.nan_guard is False else NanGuard(),
+            watchdog=watchdog, preemption=preemption,
+            fault_source=fault_source, on_epoch=log_epoch,
+            telemetry=telemetry, events=ev, log=_log)
+    finally:
+      if metrics_httpd is not None:
+        metrics_httpd.shutdown()
+        metrics_httpd.server_close()
     if args.resume and ckpt_report["resumed_from"] is not None:
       # Bit-exact resume restored the WHOLE optimizer state, including
       # the checkpointed learning rate — an explicit --lr only seeds
@@ -323,6 +388,12 @@ def cmd_train(args: argparse.Namespace) -> dict:
           "nan_rollbacks": ckpt_report["nan_rollbacks"],
           "quarantined": ckpt_report["quarantined"],
       }} if ckpt_report is not None else {}),
+      **({"telemetry": {
+          "steps": telemetry.snapshot()["steps"],
+          "examples_per_sec": telemetry.snapshot()["examples_per_sec"],
+          **({"metrics_port": metrics_port}
+             if metrics_port is not None else {}),
+      }} if telemetry is not None else {}),
       "device": str(device),
       "seconds": round(time.time() - t0, 1),
   }
@@ -518,8 +589,9 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   thread = threading.Thread(target=httpd.serve_forever, daemon=True)
   thread.start()
   _log(f"serve: listening on http://{args.host}:{port} "
-       f"(/render, /healthz, /stats, /debug/traces, /debug/events, "
-       f"/debug/profile); "
+       f"(/render, /healthz, /stats, /metrics, /debug/traces, "
+       f"/debug/events, /debug/profile, /debug/tsdb, /debug/attrib, "
+       f"/debug/incidents); "
        f"engine {svc.engine.describe()}")
 
   t0 = time.time()
@@ -562,6 +634,54 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       **({"brownout": stats["brownout"]} if svc.brownout is not None
          else {}),
       **({"ckpt_reload": watcher.snapshot()} if watcher is not None else {}),
+      **({"ship": stats["ship"]} if "ship" in stats else {}),
+      **({"incidents": stats["incidents"]} if "incidents" in stats
+         else {}),
+  }
+
+
+def cmd_ship_sink(args: argparse.Namespace) -> dict:
+  import signal
+  import threading
+
+  from mpi_vision_tpu_torch.obs.ship import make_sink_server
+
+  if args.port < 0:
+    raise SystemExit(f"--port must be >= 0 (0 = ephemeral), got {args.port}")
+  server, sink = make_sink_server(os.path.abspath(args.dir),
+                                  host="127.0.0.1", port=args.port)
+  port = server.server_address[1]
+  if args.port_file:
+    _write_port_file(args.port_file, port)
+  threading.Thread(target=server.serve_forever, name="ship-sink",
+                   daemon=True).start()
+  _log(f"ship-sink: collecting on http://127.0.0.1:{port} -> {args.dir} "
+       "(POST batches; /healthz /stats)")
+  stop_event = threading.Event()
+
+  def _on_signal(signum, frame):  # noqa: ARG001 - stdlib signature
+    stop_event.set()
+
+  previous_handlers = {}
+  for sig in (signal.SIGTERM, signal.SIGINT):
+    try:
+      previous_handlers[sig] = signal.signal(sig, _on_signal)
+    except (ValueError, OSError):  # non-main thread
+      pass
+  t0 = time.time()
+  try:
+    stop_event.wait(args.duration if args.duration > 0 else None)
+  finally:
+    server.shutdown()
+    server.server_close()
+    for sig, handler in previous_handlers.items():
+      signal.signal(sig, handler)
+    _log("ship-sink: stopped")
+  return {
+      "command": "ship-sink",
+      "port": port,
+      "seconds": round(time.time() - t0, 1),
+      **sink.stats(),
   }
 
 
@@ -574,20 +694,59 @@ def _require(args, gate: str, on: bool, flags) -> None:
 
 
 def _degraded_mode_kwargs(args: argparse.Namespace) -> dict:
-  """``RenderService`` kwargs of the degraded-mode flags: CPU fallback,
-  event log, edge cache, SLO tracking, brownout and the profiler."""
+  """``RenderService`` kwargs of the degraded-mode and flight-recorder
+  flags: CPU fallback, event log, edge cache, SLO tracking (with its
+  quantile objective and alert hook), brownout, the profiler, the tsdb
+  ring, shipping, attribution, incidents and the ``/metrics`` TTL."""
   import shlex
   import subprocess
 
-  from mpi_vision_tpu_torch.obs import SloConfig
+  from mpi_vision_tpu_torch.obs import SloConfig, TsdbConfig
+  from mpi_vision_tpu_torch.obs import attrib as attrib_lib
   from mpi_vision_tpu_torch.obs import events as events_mod
+  from mpi_vision_tpu_torch.obs import incident as incident_lib
+  from mpi_vision_tpu_torch.obs import ship as ship_lib
   from mpi_vision_tpu_torch.serve.brownout import BrownoutConfig
   from mpi_vision_tpu_torch.serve.edge import EdgeConfig
 
   _require(args, "--profile-dir", bool(args.profile_dir),
-           [("--profile-hook", bool(args.profile_hook))])
+           [("--profile-hook", bool(args.profile_hook)),
+            ("--incident-profile", args.incident_profile is not None)])
   _require(args, "--event-log", bool(args.event_log),
            [("--event-log-max-bytes", args.event_log_max_bytes > 0)])
+  _require(args, "SLO tracking (drop --no-slo)", args.slo,
+           [("--alert-hook", bool(args.alert_hook)),
+            ("--slo-quantile", args.slo_quantile is not None),
+            ("--slo-per-scene", args.slo_per_scene),
+            ("--incident-dir", bool(args.incident_dir))])
+  _require(args, "--slo-quantile", args.slo_quantile is not None,
+           [("--slo-per-scene", args.slo_per_scene)])
+  tsdb_flags = {"--tsdb-points": args.tsdb_points,
+                "--tsdb-max-series": args.tsdb_max_series,
+                "--tsdb-compact-after-s": args.tsdb_compact_after_s,
+                "--tsdb-compact-stride": args.tsdb_compact_stride}
+  _require(args, "--tsdb-interval-s > 0", args.tsdb_interval_s > 0,
+           [(f, v is not None) for f, v in tsdb_flags.items()])
+  _require(args, "--tsdb-compact-after-s",
+           args.tsdb_compact_after_s is not None,
+           [("--tsdb-compact-stride", args.tsdb_compact_stride is not None)])
+  ship_flags = {"--ship-interval-s": args.ship_interval_s,
+                "--ship-timeout-s": args.ship_timeout_s,
+                "--ship-spool-dir": args.ship_spool_dir or None,
+                "--ship-spool-mb": args.ship_spool_mb}
+  _require(args, "--ship-url", bool(args.ship_url),
+           [(f, v is not None) for f, v in ship_flags.items()])
+  _require(args, "--attrib", args.attrib,
+           [("--attrib-scenes", args.attrib_scenes is not None)])
+  if args.attrib_scenes is not None and args.attrib_scenes < 1:
+    raise SystemExit(
+        f"--attrib-scenes must be >= 1, got {args.attrib_scenes}")
+  inc_flags = {"--incident-keep": args.incident_keep,
+               "--incident-window-s": args.incident_window_s,
+               "--incident-top-cells": args.incident_top_cells,
+               "--incident-profile": args.incident_profile}
+  _require(args, "--incident-dir", bool(args.incident_dir),
+           [(f, v is not None) for f, v in inc_flags.items()])
   edge_flags = {"--edge-cache-mb": args.edge_cache_mb,
                 "--edge-trans-cell": args.edge_trans_cell,
                 "--edge-rot-bucket-deg": args.edge_rot_bucket_deg,
@@ -644,7 +803,9 @@ def _degraded_mode_kwargs(args: argparse.Namespace) -> dict:
           latency_target=args.slo_latency_target,
           fast_window_s=args.slo_fast_window_s,
           slow_window_s=args.slo_slow_window_s,
-          burn_threshold=args.slo_burn_threshold)
+          burn_threshold=args.slo_burn_threshold,
+          quantile=args.slo_quantile,
+          per_scene=args.slo_per_scene)
     except ValueError as e:
       raise SystemExit(f"bad SLO config: {e}") from None
   if args.brownout:
@@ -675,6 +836,54 @@ def _degraded_mode_kwargs(args: argparse.Namespace) -> dict:
       subprocess.run([*_argv, capture_dir], check=True, timeout=600)
 
     out["profile_hook"] = profile_hook
+  if args.alert_hook:
+    alert_argv = shlex.split(args.alert_hook)
+
+    def alert_hook(record, _argv=alert_argv):
+      # The slo_alert event rides as one JSON argv element (fire AND
+      # clear edges); failures are counted by the service, never fatal.
+      subprocess.run([*_argv, json.dumps(record)], check=True, timeout=60)
+
+    out["alert_hook"] = alert_hook
+  if args.tsdb_interval_s > 0:
+    names = {"--tsdb-points": "max_points",
+             "--tsdb-max-series": "max_series",
+             "--tsdb-compact-after-s": "compact_after_s",
+             "--tsdb-compact-stride": "compact_stride"}
+    try:
+      out["tsdb"] = TsdbConfig(interval_s=args.tsdb_interval_s, **{
+          names[f]: v for f, v in tsdb_flags.items() if v is not None})
+    except ValueError as e:
+      raise SystemExit(f"bad tsdb config: {e}") from None
+  if args.ship_url:
+    names = {"--ship-interval-s": "interval_s",
+             "--ship-timeout-s": "timeout_s",
+             "--ship-spool-mb": "spool_budget_bytes"}
+    kw = {names[f]: (v << 20 if f == "--ship-spool-mb" else v)
+          for f, v in ship_flags.items() if f in names and v is not None}
+    try:
+      out["ship"] = ship_lib.ShipConfig(
+          url=args.ship_url, spool_dir=args.ship_spool_dir or None,
+          events_path=args.event_log or None,
+          events_keep=args.event_log_keep, **kw)
+    except ValueError as e:
+      raise SystemExit(f"bad ship config: {e}") from None
+  if args.attrib:
+    out["attrib"] = attrib_lib.AttribConfig(
+        scene_cap=(args.attrib_scenes if args.attrib_scenes is not None
+                   else attrib_lib.SCENE_CAP))
+  if args.incident_dir:
+    names = {"--incident-keep": "keep",
+             "--incident-window-s": "tsdb_window_s",
+             "--incident-top-cells": "top_k_cells",
+             "--incident-profile": "profile_seconds"}
+    try:
+      out["incidents"] = incident_lib.IncidentConfig(
+          dir=args.incident_dir,
+          **{names[f]: v for f, v in inc_flags.items() if v is not None})
+    except ValueError as e:
+      raise SystemExit(f"bad incident config: {e}") from None
+  out["metrics_ttl_s"] = args.metrics_ttl_ms / 1e3
   return out
 
 
@@ -757,6 +966,21 @@ def build_parser() -> argparse.ArgumentParser:
                       "crash@step=N[,hard] / nan@step=N / preempt@step=N "
                       "/ hang@step=N,seconds=S / crash@save=I,stage=... / "
                       "corrupt@save=I; requires --ckpt")
+  t.add_argument("--metrics-port", type=int, default=None,
+                 help="export live training telemetry on this HTTP port "
+                      "(0 = ephemeral, logged on stderr): /metrics "
+                      "(mpi_train_* Prometheus families), /stats, "
+                      "/healthz, /debug/events; requires --ckpt")
+  t.add_argument("--metrics-port-file", default="",
+                 help="write the bound metrics port here (atomic "
+                      "tmp+rename) once listening")
+  t.add_argument("--metrics-log", default="",
+                 help="append one JSON line per training step and "
+                      "checkpoint save to this file; requires --ckpt")
+  t.add_argument("--event-log", default="",
+                 help="append one JSON line per lifecycle event (saves, "
+                      "restores, quarantines, NaN rollbacks, preemption, "
+                      "stalls) to this file; requires --ckpt")
   t.add_argument("--export-html", default="",
                  help="after training, write a viewer HTML of the first "
                       "validation MPI here")
@@ -937,6 +1161,21 @@ def build_parser() -> argparse.ArgumentParser:
                  help="slow burn-rate window")
   s.add_argument("--slo-burn-threshold", type=float, default=10.0,
                  help="error-budget burn rate at which the alert fires")
+  s.add_argument("--slo-quantile", type=float, default=None,
+                 help="add a histogram-quantile objective (e.g. 0.99: "
+                      "'p99 latency under --slo-latency-ms'), judged "
+                      "from the native latency histogram pooled over "
+                      "the window; requires SLO tracking")
+  s.add_argument("--slo-per-scene", action="store_true",
+                 help="judge the quantile objective per scene too "
+                      "(bounded per-scene table; alerts named like "
+                      "latency_p99:scene_007); requires --slo-quantile")
+  s.add_argument("--alert-hook", default="",
+                 help="run this command on every SLO alert fire/clear "
+                      "edge with the slo_alert event appended to its "
+                      "argv as one JSON element; runs off the request "
+                      "path, failures are counted, never fatal; requires "
+                      "SLO tracking (the --slo default)")
   s.add_argument("--brownout", action=argparse.BooleanOptionalAction,
                  default=False,
                  help="degrade, don't die: an SLO-burn/queue-depth driven "
@@ -970,7 +1209,99 @@ def build_parser() -> argparse.ArgumentParser:
                       "(default 3.0)")
   s.add_argument("--brownout-max-level", type=int, default=None,
                  help="ladder ceiling 1-4 (default 4)")
+  s.add_argument("--tsdb-interval-s", type=float, default=0.0,
+                 help="sample every /metrics family into the on-box "
+                      "time-series ring this often and serve windowed "
+                      "history at GET /debug/tsdb (<= 0 disables)")
+  s.add_argument("--tsdb-points", type=int, default=None,
+                 help="points retained per series (default 512); "
+                      "requires --tsdb-interval-s")
+  s.add_argument("--tsdb-max-series", type=int, default=None,
+                 help="series cap for the whole ring (default 4096; "
+                      "overflow counted, never fatal); requires "
+                      "--tsdb-interval-s")
+  s.add_argument("--tsdb-compact-after-s", type=float, default=None,
+                 help="thin ring points older than this to a coarser "
+                      "stride instead of evicting them; requires "
+                      "--tsdb-interval-s")
+  s.add_argument("--tsdb-compact-stride", type=int, default=None,
+                 help="keep ~one old point per stride sampling "
+                      "intervals (default 8); requires "
+                      "--tsdb-compact-after-s")
+  s.add_argument("--ship-url", default="",
+                 help="POST telemetry batches (rotated event-log "
+                      "segments, SLO alert edges, incremental tsdb "
+                      "snapshots, incident bundles) to this HTTP sink "
+                      "(e.g. a ship-sink) on a daemon thread; failures "
+                      "are counted (mpi_obs_ship_*), retried, spooled — "
+                      "never fatal, never on the request path")
+  s.add_argument("--ship-interval-s", type=float, default=None,
+                 help="shipping cadence (default 10); requires --ship-url")
+  s.add_argument("--ship-timeout-s", type=float, default=None,
+                 help="per-POST sink timeout (default 5); requires "
+                      "--ship-url")
+  s.add_argument("--ship-spool-dir", default="",
+                 help="spool undeliverable batches to this directory and "
+                      "drain them oldest-first when the sink recovers "
+                      "(unset: failed batches drop, counted); requires "
+                      "--ship-url")
+  s.add_argument("--ship-spool-mb", type=int, default=None,
+                 help="spool byte budget (default 64; oldest dropped "
+                      "past it); requires --ship-url")
+  s.add_argument("--attrib", action="store_true",
+                 help="resource-attribution ledger: account every "
+                      "completed request's device phase-seconds (timed "
+                      "on the card), queue wait, bytes and edge serves "
+                      "into bounded (scene x class x brownout-level) "
+                      "cells at GET /debug/attrib, /stats and the "
+                      "mpi_serve_attrib_* families")
+  s.add_argument("--attrib-scenes", type=int, default=None,
+                 help="distinct scenes tracked before folding into "
+                      "_other (default 32); requires --attrib")
+  s.add_argument("--incident-dir", default="",
+                 help="capture an incident bundle (alert + burn numbers, "
+                      "slowest traces, tsdb window, events, brownout "
+                      "state, top attribution cells) into this directory "
+                      "on every SLO alert FIRE edge (deduplicated until "
+                      "the clear), served at GET /debug/incidents and "
+                      "shipped through --ship-url's spool; requires SLO "
+                      "tracking")
+  s.add_argument("--incident-keep", type=int, default=None,
+                 help="bundles retained on disk, oldest pruned (default "
+                      "8); requires --incident-dir")
+  s.add_argument("--incident-window-s", type=float, default=None,
+                 help="tsdb history frozen into each bundle (default "
+                      "300); requires --incident-dir")
+  s.add_argument("--incident-top-cells", type=int, default=None,
+                 help="attribution cells frozen into each bundle "
+                      "(default 8); requires --incident-dir")
+  s.add_argument("--incident-profile", type=float, default=None,
+                 help="also wrap a torch.profiler capture of this many "
+                      "seconds into each bundle (busy while "
+                      "/debug/profile captures); requires --incident-dir "
+                      "and --profile-dir")
+  s.add_argument("--metrics-ttl-ms", type=float, default=250.0,
+                 help="memoize the /metrics exposition string this long "
+                      "(<= 0 renders per scrape)")
   s.set_defaults(fn=cmd_serve, method_given=False)
+
+  k = sub.add_parser(
+      "ship-sink",
+      help="run the telemetry collector (obs/ship.py's receiver): a "
+           "stdlib HTTP listener accepting the shipper's POSTed JSON "
+           "batches and writing each durably into a directory; point a "
+           "serve --ship-url at it")
+  k.add_argument("--dir", required=True,
+                 help="batch directory (one batch-NNNNNNNN.json per "
+                      "delivered batch, atomic rename; numbering resumes "
+                      "over an existing directory)")
+  k.add_argument("--port", type=int, default=0,
+                 help="listen port (0 = ephemeral — see --port-file)")
+  k.add_argument("--port-file", default="",
+                 help="write the bound port here (atomic rename)")
+  k.add_argument("--duration", type=float, default=0.0,
+                 help="seconds to run; <= 0 runs until interrupted")
+  k.set_defaults(fn=cmd_ship_sink)
   return ap
 
 

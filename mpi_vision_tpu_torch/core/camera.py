@@ -1,13 +1,16 @@
 """Camera intrinsics, depth-plane spacing, and image pre/de-processing.
 
 PyTorch counterpart of ``mpi_vision_tpu/core/camera.py``: intrinsics,
-depth spacing and the image pre/de-processing the training path uses (the
-crop and space-to-depth helpers are not ported yet).
+depth spacing, the image pre/de-processing the training path uses, and
+the reference's crop and space-to-depth helpers (NHWC, as in the JAX
+package).
 """
 
 from __future__ import annotations
 
 import torch
+
+from mpi_vision_tpu_torch.core import geometry, sampling
 
 
 def intrinsics_matrix(fx, fy, cx, cy, dtype=torch.float32,
@@ -57,3 +60,76 @@ def preprocess_image(image: torch.Tensor) -> torch.Tensor:
 def deprocess_image(image: torch.Tensor) -> torch.Tensor:
   """[-1, 1] -> uint8 [0, 255] (truncating, as ``astype(uint8)``)."""
   return (((image + 1.0) / 2.0) * 255.0).to(torch.uint8)
+
+
+def space_to_depth(image: torch.Tensor, block_size: int) -> torch.Tensor:
+  """``[..., H, W, C] -> [..., H/b, W/b, C*b*b]`` (NHWC).
+
+  Output channel ``c*b*b + dy*b + dx`` — torch's unfold order, the
+  reference ``SpaceToDepth`` module's — which makes it the exact inverse
+  of ``depth_to_space`` (``PixelShuffle`` order).
+  """
+  b = block_size
+  *lead, h, w, c = image.shape
+  if h % b or w % b:
+    raise ValueError(f"H, W must be divisible by block_size {b}; got {h}x{w}")
+  x = image.reshape(*lead, h // b, b, w // b, b, c)
+  n = len(lead)
+  # (..., hb, dy, wb, dx, c) -> (..., hb, wb, c, dy, dx)
+  x = x.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3)
+  return x.reshape(*lead, h // b, w // b, c * b * b)
+
+
+def depth_to_space(image: torch.Tensor, block_size: int) -> torch.Tensor:
+  """``[..., H, W, C*b*b] -> [..., H*b, W*b, C]`` (NHWC): input channel
+  ``c*b*b + dy*b + dx`` goes to offset (dy, dx) of output channel c
+  (``PixelShuffle`` order). Inverse of ``space_to_depth``."""
+  b = block_size
+  *lead, h, w, cbb = image.shape
+  if cbb % (b * b):
+    raise ValueError(f"channels {cbb} not divisible by block_size^2 {b * b}")
+  c = cbb // (b * b)
+  x = image.reshape(*lead, h, w, c, b, b)
+  n = len(lead)
+  # (..., h, w, c, dy, dx) -> (..., h, dy, w, dx, c)
+  x = x.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2)
+  return x.reshape(*lead, h * b, w * b, c)
+
+
+def crop_to_bounding_box(image: torch.Tensor, offset_y, offset_x,
+                         height: int, width: int) -> torch.Tensor:
+  """Differentiable crop through the bilinear sampler.
+
+  Samples ``((x + offset_x + 0.5)/W_img, (y + offset_y + 0.5)/H_img)`` —
+  the reference's (unswapped) crop convention. ``image``: ``[..., H, W,
+  C]``; offsets may be fractional. Returns ``[..., height, width, C]``.
+  """
+  img_h, img_w = image.shape[-3], image.shape[-2]
+  grid = geometry.homogeneous_grid(height, width, device=image.device)
+  xy = grid[:2].movedim(0, -1)  # [h, w, 2] (x, y)
+  offset = torch.stack([
+      torch.as_tensor(offset_x, dtype=torch.float32, device=image.device)
+      + 0.5,
+      torch.as_tensor(offset_y, dtype=torch.float32, device=image.device)
+      + 0.5])
+  coords = (xy + offset) / torch.tensor([img_w, img_h], dtype=torch.float32,
+                                        device=image.device)
+  coords = coords.expand(image.shape[:-3] + coords.shape)
+  return sampling.bilinear_sample(image, coords)
+
+
+def crop_image_and_adjust_intrinsics(
+    image: torch.Tensor, intrinsics: torch.Tensor,
+    offset_y, offset_x, height: int, width: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """Crop images and shift/renormalize the (normalized) intrinsics to
+  match: K to pixels, (cx, cy) minus the offset, back to the crop's
+  normalized frame."""
+  orig_h, orig_w = image.shape[-3], image.shape[-2]
+  pixel_k = scale_intrinsics(intrinsics, orig_h, orig_w)
+  shift = torch.zeros_like(pixel_k)
+  shift[..., 0, 2] = torch.as_tensor(offset_x, dtype=pixel_k.dtype)
+  shift[..., 1, 2] = torch.as_tensor(offset_y, dtype=pixel_k.dtype)
+  cropped_k = scale_intrinsics(pixel_k - shift, 1.0 / height, 1.0 / width)
+  cropped = crop_to_bounding_box(image, offset_y, offset_x, height, width)
+  return cropped, cropped_k

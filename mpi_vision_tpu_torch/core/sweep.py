@@ -138,6 +138,27 @@ def plane_sweep_one(img: torch.Tensor, depth_planes: torch.Tensor,
                      **kwargs)
 
 
+def projective_pixel_transform(
+    depth: torch.Tensor,
+    src_pixel_coords: torch.Tensor,
+    src_pose: torch.Tensor,
+    tgt_pose: torch.Tensor,
+    src_intrinsics: torch.Tensor,
+    tgt_intrinsics: torch.Tensor,
+) -> torch.Tensor:
+  """Project source-camera pixels into target-camera pixels.
+
+  ``depth``: ``[B, H, W]`` (source view); ``src_pixel_coords``:
+  ``[B, 3, H, W]``; poses are world-to-camera ``[B, 4, 4]``. Returns
+  ``[B, H, W, 2]`` target pixel coords.
+  """
+  cam = pixel2cam(depth, src_pixel_coords, src_intrinsics)
+  src_to_tgt = geometry.matmul_small(tgt_pose, torch.linalg.inv(src_pose))
+  proj = geometry.matmul_small(geometry.intrinsics_to_4x4(tgt_intrinsics),
+                               src_to_tgt)
+  return cam2pixel(cam, proj)
+
+
 def format_network_input(
     ref_image: torch.Tensor,
     src_images: torch.Tensor,

@@ -44,6 +44,42 @@ def read_file_lines(path: str) -> list[str]:
             if ln.strip() and not ln.lstrip().startswith("#")]
 
 
+def open_image(path: str, size: tuple[int, int] | None = None,
+               scale: bool = True) -> np.ndarray:
+  """Open an image file -> RGB float32 array ``[H, W, 3]`` (host).
+
+  ``size`` is (width, height) as PIL takes it; ``scale`` divides by 255
+  into [0, 1].
+  """
+  from PIL import Image
+
+  img = Image.open(path).convert("RGB")
+  if size is not None:
+    img = img.resize(size)
+  arr = np.asarray(img, np.float32)
+  return arr / 255.0 if scale else arr
+
+
+def resize_with_intrinsics(path: str, intrinsics, height: int,
+                           width: int) -> tuple[np.ndarray, np.ndarray]:
+  """Open + resize an image and scale its pixel-space intrinsics to match
+  (host numpy, as the JAX package's).
+
+  Returns ``(image [height, width, 3] in [-1, 1], intrinsics [3, 3])``: K
+  scaled elementwise by the size ratios (``camera.scale_intrinsics``'s
+  pattern).
+  """
+  from PIL import Image
+
+  with Image.open(path) as img:
+    w0, h0 = img.size
+  image = open_image(path, size=(width, height)) * 2.0 - 1.0
+  sy, sx = height / h0, width / w0
+  scale = np.array([[sx, 1.0, sx], [0.0, sy, sy], [0.0, 0.0, 1.0]],
+                   np.float32)
+  return image, np.asarray(intrinsics, np.float32) * scale
+
+
 @dataclass
 class Scene:
   """One RealEstate10K view sequence (cameras only, images on disk)."""

@@ -1,25 +1,37 @@
 """Native (sparse, exponential-bucket) histograms with exemplars.
 
-A native histogram puts every positive observation into an exponential
-bucket ``(base^(i-1), base^i]`` with ``base = 2^(1/scale)``, so:
+A copy of ``mpi_vision_tpu/obs/hist.py`` with its imports rewritten.
+
+The flight recorder's measurement primitive. The classic fixed-bucket
+latency histogram (``serve/metrics.py``'s ``LATENCY_BUCKETS_S``) answers
+"how many requests beat 100 ms" but not "what IS p99" — quantiles read
+off 13 hand-picked bounds are only as accurate as the nearest bound, and
+a pool aggregator can do nothing better. A native histogram puts every
+positive observation into an exponential bucket ``(base^(i-1), base^i]``
+with ``base = 2^(1/scale)``, so:
 
   * **resolution is relative and uniform** — at ``scale = 4`` every
     bucket is ~19% wide, so a quantile estimate is within ~9% of truth
-    at any magnitude, from 100 us to 30 s, without choosing bounds in
-    advance;
+    at any magnitude, from 100 us cache hits to 30 s retry storms,
+    without choosing bounds in advance;
   * **histograms merge exactly** — two histograms at one scale share the
-    same bucket index space, so pooling them is a per-index count sum,
-    never a lossy re-bucketing;
+    same bucket index space, so pooling across time buckets (the SLO
+    windows) or across backends (the cluster router) is a per-index
+    count sum, never a lossy re-bucketing. This is what lets the router
+    aggregate them instead of dropping them as non-additive the way the
+    ratio gauges are;
   * **exemplars ride the buckets** — each bucket remembers the most
     recent trace id observed in it, so "p99 is 1.4 s" links directly to
     a recorded trace of an actual 1.4 s request (``/debug/traces``).
 
-Everything is a plain dict-of-ints snapshot away from JSON; the serving
-metrics' snapshots ride ``/stats``.
+Everything is a plain dict-of-ints snapshot away from JSON, so the same
+representation rides ``/stats``, the Prometheus exposition
+(``mpi_serve_*_nativehist`` families), the SLO windows, and the
+off-host shipper.
 
-No locking here: the holder (``ServeMetrics``) serializes access under
-its own lock. No clock reads either (exemplars are ordered by arrival,
-not time).
+No locking here: every holder (``ServeMetrics``, ``SloTracker``) already
+serializes access under its own lock. No clock reads either (exemplars
+are ordered by arrival, not time) — clock-lint covers this file.
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ import math
 # Buckets per power of two. base = 2**(1/SCALE) ~= 1.189: ~19% relative
 # bucket width, worst-case ~9% quantile error — comfortably inside any
 # latency objective's slack, at ~40 resident buckets for the us..minutes
-# range real serving latencies span. One shared scale keeps every
-# histogram in one index space, which is what makes a merge exact.
+# range real serving latencies span. One shared scale for the whole
+# stack keeps every histogram in one index space, which is what makes
+# the text-exposition pool merge a plain per-sample sum.
 SCALE = 4
 
 # Index clamp: base^-160 ~= 1e-12 s and base^120 ~= 1e9 s. Observations
@@ -39,6 +52,19 @@ SCALE = 4
 # allocate 4000 buckets).
 MIN_IDX = -160
 MAX_IDX = 120
+
+# The quantiles the convenience gauges export (/metrics, tsdb, router
+# pool view). Labels use the short string forms below.
+QUANTILES = (0.5, 0.9, 0.99)
+
+# Per-backend quantile gauges are statements about ONE process — summing
+# p99s across a pool is meaningless, so the cluster router drops this
+# family from its summed exposition and computes its own pooled
+# quantiles from the (correctly merged) native-histogram buckets.
+NON_ADDITIVE_FAMILIES = frozenset({
+    "mpi_serve_request_quantile_seconds",
+})
+
 
 def bucket_index(value: float, scale: int = SCALE) -> int:
   """The bucket index of a positive observation (clamped)."""
@@ -170,7 +196,7 @@ class NativeHistogram:
     return min(over / self.count, 1.0)
 
   def snapshot(self) -> dict:
-    """JSON-ready state (str bucket keys; rides /stats)."""
+    """JSON-ready state (str bucket keys; rides /stats and the shipper)."""
     return {
         "scale": self.scale,
         "count": self.count,
@@ -197,3 +223,72 @@ def quantile_of(snapshot: dict | None, q: float) -> float | None:
   if not snapshot or not snapshot.get("count"):
     return None
   return merge([snapshot]).quantile(q)
+
+
+def q_label(q: float) -> str:
+  """The ``q=`` label value for a quantile gauge ("0.99", "0.5")."""
+  return f"{q:g}"
+
+
+def add_family(reg, name: str, help_text: str, items) -> None:
+  """Render native-histogram snapshots as one exposition family.
+
+  ``items`` is ``[(extra_labels_dict, snapshot_or_None), ...]`` (one
+  entry per label group — e.g. one per ``phase``). Emitted samples:
+  ``_bucket{idx=,le=}`` per resident bucket (``le`` is the bucket's
+  upper bound, for humans; ``idx`` is the merge key), ``_zero``,
+  ``_sum``, ``_count``. Bucket samples carry their exemplar
+  OpenMetrics-style (`` # {trace_id="..."} value``). Because every
+  histogram shares ``SCALE``, the cluster aggregator's per-sample sum
+  IS the exact bucket merge.
+  """
+  m = reg.histogram_family(name, help_text)
+  for labels, snap in items:
+    labels = dict(labels or {})
+    snap = snap or {}
+    scale = int(snap.get("scale", SCALE))
+    exemplars = snap.get("exemplars") or {}
+    for key, n in (snap.get("buckets") or {}).items():
+      idx = int(key)
+      ex = exemplars.get(key)
+      m.sample(n, {**labels, "idx": str(idx),
+                   "le": f"{bucket_bounds(idx, scale)[1]:.6g}"},
+               suffix="_bucket",
+               exemplar=(ex["trace_id"], ex["value"]) if ex else None)
+    m.sample(snap.get("zero", 0), labels, suffix="_zero")
+    m.sample(snap.get("sum", 0.0), labels, suffix="_sum")
+    m.sample(snap.get("count", 0), labels, suffix="_count")
+
+
+def snapshots_from_samples(samples: dict) -> dict:
+  """Reconstruct snapshots from one family's parsed exposition samples.
+
+  The router-side inverse of ``add_family``: ``samples`` is the
+  ``{(sample_name, labels_tuple): value}`` map ``parse_metrics_text``
+  returns for a ``*_nativehist`` family (already pool-summed by
+  ``aggregate_metrics_texts`` — per-``idx`` sums are the exact merge).
+  Returns ``{group_labels_tuple: snapshot}`` keyed by the labels minus
+  ``idx``/``le``.
+  """
+  groups: dict[tuple, dict] = {}
+
+  def group(labels) -> dict:
+    key = tuple(kv for kv in labels if kv[0] not in ("idx", "le"))
+    return groups.setdefault(key, {"scale": SCALE, "count": 0, "sum": 0.0,
+                                   "zero": 0, "buckets": {},
+                                   "exemplars": {}})
+
+  for (sample_name, labels), value in samples.items():
+    if sample_name.endswith("_bucket"):
+      idx = next((v for k, v in labels if k == "idx"), None)
+      if idx is None:
+        continue
+      g = group(labels)
+      g["buckets"][idx] = g["buckets"].get(idx, 0) + int(value)
+    elif sample_name.endswith("_zero"):
+      group(labels)["zero"] += int(value)
+    elif sample_name.endswith("_sum"):
+      group(labels)["sum"] += float(value)
+    elif sample_name.endswith("_count"):
+      group(labels)["count"] += int(value)
+  return groups

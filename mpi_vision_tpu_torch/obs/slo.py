@@ -39,9 +39,9 @@ small native histogram when the quantile objective is on), driven
 entirely by an injectable clock so every rotation/alert edge is testable
 with fake time.
 
-``verdict()`` turns a snapshot into a pass/fail block against explicit
-objectives. The JAX module's ``registry()``/``metrics_text()`` (its
-``mpi_slo_*`` Prometheus families) wait for the port's ``/metrics``.
+``SloTracker.registry()`` renders the state as ``mpi_slo_*`` Prometheus
+families (served at ``/metrics``); ``verdict()`` turns a snapshot into a
+pass/fail block against explicit objectives.
 """
 
 from __future__ import annotations
@@ -52,6 +52,30 @@ import threading
 import time
 
 from mpi_vision_tpu_torch.obs import hist as hist_mod
+from mpi_vision_tpu_torch.obs import prom
+
+PREFIX = "mpi_slo_"
+
+# Families a pool aggregator must NOT sum across backends: targets,
+# ratios, thresholds, and quantiles are per-backend statements (3 x 0.99
+# targets summed would read 2.97, and an idle backend's NaN attainment
+# would poison the fleet sample). The cluster router drops these from
+# its summed exposition; the per-backend values stay reachable through
+# the /stats fan-out, and the router computes its own POOLED quantiles
+# from the (exactly merged) native-histogram buckets. Everything else
+# mpi_slo_* exports sums meaningfully (window counts add; alert_firing
+# becomes "firing backends"; scene_alerts_firing becomes "firing scene
+# alerts fleet-wide").
+NON_ADDITIVE_FAMILIES = frozenset({
+    PREFIX + "objective_target",
+    PREFIX + "attainment_ratio",
+    PREFIX + "burn_rate",
+    PREFIX + "latency_threshold_seconds",
+    PREFIX + "burn_threshold",
+    PREFIX + "quantile",
+    PREFIX + "quantile_latency_seconds",
+    PREFIX + "quantile_threshold_seconds",
+})
 
 _OBJECTIVES = ("availability", "latency")
 
@@ -651,6 +675,89 @@ class SloTracker:
       out["alerts_firing"] = sorted(
           n for n, a in self._alerts.items() if a.firing)
       return out
+
+  def registry(self, snapshot: dict | None = None) -> prom.Registry:
+    """The ``mpi_slo_*`` Prometheus families for one snapshot.
+
+    Pool-aggregation note (``obs.prom.aggregate_metrics_texts`` sums
+    samples): ``mpi_slo_alert_firing`` summed across a cluster counts
+    FIRING BACKENDS — exactly the fleet-level signal the router wants —
+    and ``mpi_slo_scene_alerts_firing`` counts firing per-scene alerts
+    fleet-wide. The quantile/ratio gauges are in
+    ``NON_ADDITIVE_FAMILIES`` and never pool-summed.
+    """
+    snap = snapshot if snapshot is not None else self.snapshot()
+    reg = prom.Registry()
+    p = PREFIX
+    objective = reg.gauge(p + "objective_target",
+                          "Configured SLO target (good-event fraction).")
+    attained = reg.gauge(
+        p + "attainment_ratio",
+        "Good-event fraction over the window (NaN while idle).")
+    requests = reg.gauge(p + "window_requests",
+                         "Events scored in the window.")
+    bad = reg.gauge(p + "window_bad", "Bad events in the window.")
+    burn = reg.gauge(
+        p + "burn_rate",
+        "Error-budget consumption rate over the window (1.0 = exactly "
+        "sustainable; quantile objectives report quantile/threshold).")
+    firing = reg.gauge(p + "alert_firing",
+                       "1 while the objective's burn-rate alert fires.")
+    fired = reg.counter(p + "alerts_fired_total",
+                        "Alert fire transitions.")
+    cleared = reg.counter(p + "alerts_cleared_total",
+                          "Alert clear transitions.")
+    quantile_entries = []
+    for name, entry in snap["objectives"].items():
+      labels = {"slo": name}
+      if "quantile" in entry:
+        quantile_entries.append((name, entry))
+      else:
+        objective.sample(entry["target"], labels)
+      for wname in ("fast", "slow"):
+        wlabels = {"slo": name, "window": wname}
+        w = entry[wname]
+        attained.sample(w["attained"], wlabels)
+        requests.sample(w["requests"], wlabels)
+        bad.sample(w["bad"], wlabels)
+        burn.sample(w["burn_rate"], wlabels)
+      firing.sample(1 if entry["alert"]["firing"] else 0, labels)
+      fired.sample(entry["alert"]["fired"], labels)
+      cleared.sample(entry["alert"]["cleared"], labels)
+    if quantile_entries:
+      q_gauge = reg.gauge(p + "quantile",
+                          "The quantile the objective judges (e.g. 0.99).")
+      q_lat = reg.gauge(
+          p + "quantile_latency_seconds",
+          "Windowed latency at the objective's quantile, estimated from "
+          "the pooled native histogram (NaN while idle).")
+      q_thr = reg.gauge(p + "quantile_threshold_seconds",
+                        "The quantile objective's latency bound.")
+      for name, entry in quantile_entries:
+        labels = {"slo": name}
+        q_gauge.sample(entry["quantile"], labels)
+        q_thr.sample(entry["threshold_ms"] / 1e3, labels)
+        for wname in ("fast", "slow"):
+          q_ms = entry[wname]["quantile_ms"]
+          q_lat.sample(None if q_ms is None else q_ms / 1e3,
+                       {"slo": name, "window": wname})
+    if "per_scene" in snap:
+      reg.gauge(
+          p + "scene_alerts_firing",
+          "Per-scene quantile alerts currently firing (pool-summed: "
+          "firing scene alerts fleet-wide).",
+          sum(1 for scene in snap["per_scene"].values()
+              if scene["alert"]["firing"]))
+    reg.gauge(p + "latency_threshold_seconds",
+              "The latency objective's good-request bound.",
+              snap["config"]["latency_threshold_ms"] / 1e3)
+    reg.gauge(p + "burn_threshold",
+              "Burn rate at which the alert fires (both windows).",
+              snap["config"]["burn_threshold"])
+    return reg
+
+  def metrics_text(self) -> str:
+    return self.registry().render()
 
 
 def verdict(snapshot: dict | None) -> dict | None:

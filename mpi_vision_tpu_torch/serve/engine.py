@@ -24,7 +24,12 @@ The dispatch API is a streaming pipeline:
   * ``poll(handle)`` is the non-blocking readiness probe (``Event.query``).
   * ``wait(handle)`` is the ONE synchronization point: it synchronises the
     batch's event, hands back its frames, releases the window slot, and
-    stamps the handle's phase timings.
+    stamps the handle's phase timings. On the card those are what the
+    card did: timing events recorded on the stream around the pose
+    upload, the render and the frame readback give ``h2d_s``,
+    ``compute_s`` and ``readback_s`` (the time a launch took to return
+    on the host is not a device time). They feed ``/metrics``'
+    ``device_phase_seconds`` and the attribution ledger.
   * ``abandon(handle)`` releases a handle's window slot without waiting.
 
 ``render_batch`` is ``submit`` + ``wait``. Completion workers call these
@@ -84,13 +89,17 @@ class InFlightBatch:
   ``abandon``, whichever runs first.
   """
 
-  __slots__ = ("out", "event", "views", "t_submit", "h2d_enqueue_s",
-               "timings", "_engine", "_released", "_lock")
+  __slots__ = ("out", "event", "marks", "views", "t_submit",
+               "h2d_enqueue_s", "timings", "_engine", "_released", "_lock")
 
   def __init__(self, engine: "RenderEngine", out: torch.Tensor, event,
-               views: int, t_submit: float, h2d_enqueue_s: float):
+               views: int, t_submit: float, h2d_enqueue_s: float,
+               marks: tuple | None = None):
     self.out = out
     self.event = event
+    # Timing events on the engine's stream (CUDA only): before the pose
+    # upload, after it, after the render, after the readback (== event).
+    self.marks = marks
     self.views = views
     self.t_submit = t_submit
     self.h2d_enqueue_s = h2d_enqueue_s
@@ -221,15 +230,20 @@ class RenderEngine:
     self._acquire_slot()
     try:
       t0 = self._clock()
+      marks = None
       if self._stream is None:
         t1 = self._clock()
         out, event = self._render(scene, torch.tensor(poses)), None
       else:
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+          marks = tuple(torch.cuda.Event(enable_timing=True)
+                        for _ in range(4))
           host_poses = torch.empty(poses.shape, dtype=torch.float32,
                                    pin_memory=True)
           host_poses.numpy()[...] = poses
+          marks[0].record(self._stream)
           poses_dev = host_poses.to(self.device, non_blocking=True)
+          marks[1].record(self._stream)
           t1 = self._clock()
           # The cache may evict the scene while this batch still reads it
           # on the engine's stream: keep its memory from being reused
@@ -239,17 +253,18 @@ class RenderEngine:
             if t is not None:
               t.record_stream(self._stream)
           frames = self._render(scene, poses_dev)
+          marks[2].record(self._stream)
           out = torch.empty(frames.shape, dtype=frames.dtype,
                             pin_memory=True)
           out.copy_(frames, non_blocking=True)
-          event = torch.cuda.Event()
-          event.record(self._stream)
+          marks[3].record(self._stream)
+          event = marks[3]
     except BaseException:
       self._release_slot()
       raise
     with self._inflight_lock:  # concurrent submitters: don't drop counts
       self.dispatches += 1
-    return InFlightBatch(self, out, event, v, t0, t1 - t0)
+    return InFlightBatch(self, out, event, v, t0, t1 - t0, marks)
 
   def poll(self, handle: InFlightBatch) -> bool:
     """Non-blocking: is ``handle``'s result ready to read?"""
@@ -269,15 +284,25 @@ class RenderEngine:
       t2 = self._clock()
     finally:
       handle.release_slot()
-    # Phase split on the handle's timeline: h2d = host enqueue cost of the
-    # pose upload, compute = submit-to-ready (render and the device-to-host
-    # frame copy, both on the stream, plus queueing behind earlier
-    # batches), readback = handing the finished host buffer over.
-    handle.timings = {
-        "h2d_s": handle.h2d_enqueue_s,
-        "compute_s": max((t1 - handle.t_submit) - handle.h2d_enqueue_s, 0.0),
-        "readback_s": t2 - t1,
-    }
+    if handle.marks is not None:
+      # What the card did, from the stream's timing events: the pose
+      # upload, the render (homographies and kernel), the frame readback
+      # into pinned memory. Queueing behind earlier batches is not in it.
+      m = handle.marks
+      handle.timings = {
+          "h2d_s": m[0].elapsed_time(m[1]) / 1e3,
+          "compute_s": m[1].elapsed_time(m[2]) / 1e3,
+          "readback_s": m[2].elapsed_time(m[3]) / 1e3,
+      }
+    else:
+      # The CPU renders synchronously inside submit: compute is submit to
+      # wait on the host clock, readback the hand-over of the host buffer.
+      handle.timings = {
+          "h2d_s": handle.h2d_enqueue_s,
+          "compute_s": max((t1 - handle.t_submit) - handle.h2d_enqueue_s,
+                           0.0),
+          "readback_s": t2 - t1,
+      }
     self.last_render_s = t2 - handle.t_submit
     self.last_timings = dict(handle.timings)
     return host[:handle.views]

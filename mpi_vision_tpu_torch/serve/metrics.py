@@ -32,6 +32,14 @@ PER_SCENE_CAP = 32
 # regression hunting, not capacity planning).
 PER_SCENE_WINDOW = 512
 
+# Prometheus-histogram bucket bounds (seconds) for request latency.
+# Log-ish spacing from 1 ms to 10 s: serving latencies span sub-ms edge
+# hits to cold-bake + retry-storm tails, and a scraper needs the whole
+# range. Cumulative lifetime counts (unlike the percentile window, which
+# is recent-only by design).
+LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
 
 class ServeMetrics:
   """Aggregates the serving layer's observability counters."""
@@ -45,14 +53,28 @@ class ServeMetrics:
     # Called OUTSIDE this object's lock: the tracker locks itself, and
     # its alert callback may fan out to the event log.
     self.slo = None
+    # Optional obs.attrib.AttribLedger fed from record_request (set by
+    # RenderService). Feeding it HERE is what makes the conservation
+    # invariant structural: the ledger's request count and this object's
+    # ``requests`` increment on the same call. Like slo, called outside
+    # this lock (the ledger locks itself).
+    self.attrib = None
     self.reset()
 
   def reset(self) -> None:
     """Zero every counter and restart the uptime clock (load generators
     call this after warm-up so measurements are steady-state only)."""
+    if self.attrib is not None:
+      # The ledger must forget warm-up traffic together with the totals
+      # it reconciles against, or conservation breaks at the first
+      # post-warmup snapshot.
+      self.attrib.reset()
     with self._lock:
       self._t0 = self._clock()
       self._latencies = collections.deque(maxlen=self._window)
+      self._lat_bucket_counts = [0] * len(LATENCY_BUCKETS_S)
+      self._lat_overflow = 0  # latencies above the largest bound
+      self._lat_sum = 0.0
       self._batch_hist = collections.Counter()
       self._queue_depth = 0
       self.requests = 0
@@ -124,17 +146,33 @@ class ServeMetrics:
       self.slo.reset()
 
   def record_request(self, latency_s: float, scene_id: str | None = None,
-                     trace_id: str | None = None) -> None:
+                     trace_id: str | None = None,
+                     attrib: dict | None = None) -> None:
     """One request completed, queue-to-response latency.
 
     ``scene_id`` feeds the bounded per-scene breakdown; None skips it.
     ``trace_id`` becomes the latency bucket's exemplar so a quantile
     reading links to a recorded trace.
+
+    ``attrib`` carries the request's attribution context when a ledger
+    is attached (``{"class", "level", "device", "queue_wait_s",
+    "edge"}`` — all optional): the scheduler passes the flight's
+    per-request device share and queue wait, the edge cache passes the
+    hit/warp kind. With no ledger attached it is ignored; with a ledger
+    attached but no context the request still lands in a default cell,
+    so the request-count conservation holds for every caller.
     """
     with self._lock:
       self.requests += 1
+      self._lat_sum += latency_s
       self._latencies.append(latency_s)
       self._hist_request.record(latency_s, exemplar=trace_id)
+      for i, bound in enumerate(LATENCY_BUCKETS_S):
+        if latency_s <= bound:
+          self._lat_bucket_counts[i] += 1
+          break
+      else:
+        self._lat_overflow += 1
       if scene_id is not None:
         key = str(scene_id)
         if key not in self._per_scene and len(self._per_scene) >= PER_SCENE_CAP:
@@ -147,6 +185,13 @@ class ServeMetrics:
         entry[1] += latency_s
         entry[2] = max(entry[2], latency_s)
         entry[3].append(latency_s)
+    ledger = self.attrib
+    if ledger is not None:
+      ctx = attrib or {}
+      ledger.record(scene_id, ctx.get("class"), ctx.get("level", 0),
+                    device=ctx.get("device"),
+                    queue_wait_s=ctx.get("queue_wait_s", 0.0),
+                    edge=ctx.get("edge"))
     if self.slo is not None:
       # trace_id rides into the SLO windows' native histograms too, so
       # quantile alerts carry a worst-offender exemplar.
@@ -295,6 +340,30 @@ class ServeMetrics:
       if planes is not None:
         self._planes_hist[int(planes)] = \
             self._planes_hist.get(int(planes), 0) + 1
+
+  def latency_histogram(self) -> dict:
+    """Cumulative Prometheus-style latency histogram.
+
+    ``buckets`` are ``(upper_bound_s, cumulative_count)`` ascending plus
+    the ``+Inf`` bucket; ``sum``/``count`` follow the exposition format.
+    """
+    with self._lock:
+      cum, buckets = 0, []
+      for bound, n in zip(LATENCY_BUCKETS_S, self._lat_bucket_counts):
+        cum += n
+        buckets.append((bound, cum))
+      total = cum + self._lat_overflow
+      buckets.append((float("inf"), total))
+      return {"buckets": buckets, "sum": round(self._lat_sum, 6),
+              "count": total}
+
+  def attrib_reference(self) -> dict:
+    """The attribution ledger's conservation reference — the UNROUNDED
+    request/phase totals (``snapshot()`` rounds to 3 decimals, which
+    would swamp the reconciliation's 1e-6 tolerance)."""
+    with self._lock:
+      return {"requests": self.requests,
+              "device_phase_seconds": dict(self.phase_seconds)}
 
   def set_queue_depth(self, depth: int) -> None:
     with self._lock:

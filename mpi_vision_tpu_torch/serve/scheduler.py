@@ -95,6 +95,8 @@ class _Pending:
                                  # scene_id in submit()
   attrib: tuple | None = None    # (request_class, brownout_level) of the
                                  # request; None = unlabeled
+  t_dispatch: float = 0.0        # when the flight claimed the request
+                                 # (queue wait = t_dispatch - t_enqueue)
 
 
 @dataclasses.dataclass
@@ -490,6 +492,7 @@ class MicroBatcher:
       return None
     assembly = self._last_assembly
     for req in live:
+      req.t_dispatch = now  # queue wait ends where the qspan ends
       req.trace.end_span(req.qspan)
       if assembly is not None:
         req.trace.add_span("batch_assembly", assembly[0], assembly[1],
@@ -748,10 +751,27 @@ class MicroBatcher:
     d1 = self._clock()
     self.metrics.record_batch(len(batch), render_s, phases=phases)
     done = self._clock()
+    # Attribution: each member of the flight carries an equal share of
+    # the dispatch's phase split, so the ledger's cell sums re-add to
+    # exactly what record_batch just put into phase_seconds (the
+    # conservation invariant). Built once per flight, only with a ledger
+    # attached — the default path stays allocation-free.
+    share = None
+    if getattr(self.metrics, "attrib", None) is not None:
+      n = len(batch)
+      share = {phase: float((phases or {}).get(phase + "_s", 0.0)) / n
+               for phase in ("h2d", "compute", "readback")}
     for i, req in enumerate(batch):
+      kwargs = {}
+      if share is not None:
+        cls, level = req.attrib if req.attrib is not None else (None, 0)
+        kwargs["attrib"] = {
+            "class": cls, "level": level, "device": share,
+            "queue_wait_s": max(req.t_dispatch - req.t_enqueue, 0.0)}
       self.metrics.record_request(done - req.t_enqueue,
                                   scene_id=req.scene_id,
-                                  trace_id=req.trace.trace_id or None)
+                                  trace_id=req.trace.trace_id or None,
+                                  **kwargs)
       dspan = req.trace.add_span("dispatch", d0, d1, size=len(batch))
       if recorder is not None:
         recorder.replay(req.trace, parent=dspan)

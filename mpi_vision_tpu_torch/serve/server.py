@@ -9,7 +9,18 @@ threaded stdlib ``http.server`` front end:
                    "platform", "scenes", ...}
   GET  /stats   -> the metrics snapshot (latency percentiles, throughput,
                    batch-size histogram, queue depth, cache hit rate,
-                   pipeline, engine, breaker)
+                   pipeline, engine, breaker, and the tsdb / ship /
+                   attrib / incidents / alert_hook blocks when on)
+  GET  /metrics -> Prometheus text exposition of the same snapshot under
+                   the JAX package's ``mpi_*`` family names (exemplars
+                   stripped unless ``?exemplars=1``)
+  GET  /debug/tsdb -> windowed history from the on-box time-series ring
+                   (?family=&recent=&points=; 503 unless built with tsdb)
+  GET  /debug/attrib -> the resource-attribution ledger and its
+                   conservation check against the metrics totals (?top=K;
+                   503 unless built with attrib)
+  GET  /debug/incidents -> the incident-bundle ring index (?id= one
+                   bundle; 503 unless built with an incident dir)
   GET  /debug/traces -> recent + slowest-N finished request traces
                    (?id=<trace_id> returns just that id's records)
   GET  /debug/events -> the bounded structured lifecycle event log
@@ -57,6 +68,12 @@ cells from memory and near misses by a homography warp on the engine's
 device. SLO tracking (``obs/slo.py``) drives the brownout ladder
 (``serve/brownout.py``): thinned planes, half-resolution renders through
 the warp and the compose kernel, widened edge warps, sheds.
+
+The flight recorder (the JAX service's, ported): ``/metrics``, an on-box
+time-series ring (``obs/tsdb.py``), off-host shipping with a disk spool
+(``obs/ship.py``), the resource-attribution ledger (``obs/attrib.py``)
+and SLO-triggered incident bundles (``obs/incident.py``), whose optional
+profile runs through the same ``DeviceProfiler`` as ``/debug/profile``.
 """
 
 from __future__ import annotations
@@ -81,6 +98,11 @@ import torch
 
 from mpi_vision_tpu_torch.core import camera
 from mpi_vision_tpu_torch.core.sampling import Convention
+from mpi_vision_tpu_torch.obs import attrib as attrib_mod
+from mpi_vision_tpu_torch.obs import incident as incident_mod
+from mpi_vision_tpu_torch.obs import prom
+from mpi_vision_tpu_torch.obs import ship as ship_mod
+from mpi_vision_tpu_torch.obs import tsdb as tsdb_mod
 from mpi_vision_tpu_torch.obs.events import EventLog
 from mpi_vision_tpu_torch.obs.profile import DeviceProfiler, ProfileBusyError
 from mpi_vision_tpu_torch.obs.slo import SloConfig, SloTracker
@@ -244,8 +266,42 @@ class RenderService:
       reduced-resolution targets: not 'fused_pallas').
     events: the lifecycle event log (``obs.events.EventLog``; a private
       one is made if omitted) serving ``/debug/events``.
+    alert_hook: optional callable invoked with each ``slo_alert`` event's
+      record on every alert FIRE and CLEAR edge (``serve --alert-hook
+      CMD``). Edges are delivered in order by one daemon worker thread,
+      off the request path; failures are counted (``alert_hook`` block of
+      ``/stats``) and never raised.
+    tsdb: the on-box time-series ring (``obs.tsdb``): a ``TsdbConfig``
+      samples every ``/metrics`` family on its cadence (the recorder
+      thread starts here and stops in ``close``) and serves windowed
+      history at ``GET /debug/tsdb``; a pre-built ``TsdbRecorder`` is
+      adopted un-started (tests drive ``sample()``); None: 503.
+    ship: off-host telemetry shipping (``obs.ship``): a ``ShipConfig``
+      batches rotated event-log segments, SLO alert edges, incremental
+      tsdb snapshots and incident bundles to its HTTP sink on a daemon
+      thread (retry + disk spool; never on the request path); a pre-built
+      ``TelemetryShipper`` is adopted un-started (tests drive ``tick()``);
+      None disables shipping.
+    attrib: resource attribution (``obs.attrib``): an ``AttribConfig``
+      accounts every completed request's device phase-seconds (its share
+      of the flight's ``last_timings``, timed on the card), queue wait,
+      bytes and edge serves into bounded (scene x class x brownout level)
+      cells served at ``GET /debug/attrib``; a pre-built ``AttribLedger``
+      is adopted; None: 503.
+    incidents: the SLO-triggered incident recorder (``obs.incident``): an
+      ``IncidentConfig`` captures a bundle (alert and burn numbers,
+      slowest traces, tsdb window, events, brownout state, top
+      attribution cells, optionally a profile through ``profiler``) on
+      every alert FIRE edge, deduplicated until the clear, into a bounded
+      on-disk ring served at ``GET /debug/incidents`` and shipped through
+      the shipper's spool; a pre-built ``IncidentRecorder`` is adopted
+      un-started (tests drive ``drain()``); None: 503. Requires SLO
+      tracking.
+    metrics_ttl_s: ``/metrics`` exposition-string cache TTL
+      (``obs.prom.ExpositionCache``); <= 0 renders fresh every scrape.
     clock: injectable monotonic clock for the scheduler's deadlines, the
-      SLO windows, the brownout ladder and the edge cache.
+      SLO windows, the brownout ladder, the edge cache, the exposition
+      cache and the incident recorder.
   """
 
   def __init__(self, cache_bytes: int = 2 << 30, max_batch: int = 8,
@@ -261,7 +317,12 @@ class RenderService:
                profiler: DeviceProfiler | None = None, profile_hook=None,
                slo: "SloConfig | SloTracker | None" = SloConfig(),
                brownout: "brownout_mod.BrownoutConfig | None" = None,
-               events: EventLog | None = None, clock=time.monotonic):
+               events: EventLog | None = None, alert_hook=None,
+               tsdb: "tsdb_mod.TsdbConfig | tsdb_mod.TsdbRecorder | None" = None,
+               ship: "ship_mod.ShipConfig | ship_mod.TelemetryShipper | None" = None,
+               attrib: "attrib_mod.AttribConfig | attrib_mod.AttribLedger | None" = None,
+               incidents: "incident_mod.IncidentConfig | incident_mod.IncidentRecorder | None" = None,
+               metrics_ttl_s: float = 0.25, clock=time.monotonic):
     if cpu_fallback not in ("auto", "on", "off"):
       raise ValueError(
           f"cpu_fallback must be auto/on/off, got {cpu_fallback!r}")
@@ -316,6 +377,11 @@ class RenderService:
             "('pallas') or a plain method ('fused'/'scan'/'assoc'); "
             "method='fused_pallas' cannot render reduced-resolution "
             "targets")
+    if incidents is not None and slo is None:
+      # The recorder only ever triggers on SLO alert edges; without the
+      # tracker it would sit armed forever and never capture.
+      raise ValueError("incidents require SLO tracking (slo=None "
+                       "disables the alert edges that trigger capture)")
     # "auto" derives a per-scene size from its dims at publish
     # (tiles_mod.auto_tile); every `self.tile is not None` gate below
     # treats it exactly like an explicit size.
@@ -332,6 +398,16 @@ class RenderService:
         max_inflight=max(8, 2 * engine_window), **engine_kw)
     self.cache = cache_mod.SceneCache(byte_budget=cache_bytes)
     self.metrics = ServeMetrics()
+    # Resource-attribution ledger (obs/attrib.py): installed ON the
+    # metrics object so the one record_request recording point feeds
+    # both sides of the conservation invariant.
+    if isinstance(attrib, attrib_mod.AttribLedger):
+      self.attrib = attrib
+    elif attrib is not None:
+      self.attrib = attrib_mod.AttribLedger(attrib)
+    else:
+      self.attrib = None
+    self.metrics.attrib = self.attrib
     self.events = events if events is not None else EventLog()
     # SLO judgment layer: alert edges land in the event log, request
     # outcomes feed the tracker via ServeMetrics (one recording point).
@@ -352,6 +428,12 @@ class RenderService:
       self.profiler = DeviceProfiler(profile_dir) if profile_dir else None
     self.profile_hook = profile_hook
     self.profile_hook_failures = 0
+    self.alert_hook = alert_hook
+    self._alert_hook_lock = threading.Lock()
+    self._alert_hook_queue = None  # lazy: only alerting services pay it
+    self.alert_hook_runs = 0
+    self.alert_hook_failures = 0
+    self._closed = False
     self.resilient = None if resilience is None else ResilientExecutor(
         resilience, metrics=self.metrics, events=self.events)
     self.fallback_engine = fallback_engine
@@ -437,10 +519,128 @@ class RenderService:
           brownout, burn_fn=self.slo.fast_burn,
           queue_fn=self.scheduler.queue_fraction,
           on_transition=self._on_brownout_transition, clock=clock)
-    self._closed = False
+    self._metrics_cache = prom.ExpositionCache(
+        self._render_metrics_text, ttl_s=metrics_ttl_s, clock=clock)
+    # Flight-recorder legs (obs/tsdb.py, obs/ship.py): configs build and
+    # START the daemon threads; pre-built objects are adopted un-started
+    # (tests drive sample()/tick() against fake clocks and sinks). The
+    # tsdb recorder samples _render_metrics_text directly: history must
+    # be fresh samples, not the exposition cache's memoized string.
+    if isinstance(tsdb, tsdb_mod.TsdbRecorder):
+      self.tsdb = tsdb
+    elif tsdb is not None:
+      self.tsdb = tsdb_mod.TsdbRecorder(
+          self._render_metrics_text, tsdb).start()
+    else:
+      self.tsdb = None
+    if isinstance(ship, ship_mod.TelemetryShipper):
+      self.shipper = ship
+      if self.shipper.tsdb is None:
+        self.shipper.tsdb = self.tsdb
+    elif ship is not None:
+      self.shipper = ship_mod.TelemetryShipper(ship, tsdb=self.tsdb).start()
+    else:
+      self.shipper = None
+    # Incident recorder (obs/incident.py): built last — its collector
+    # freezes every surface wired above (slo, tracer, tsdb, events,
+    # brownout, attrib, profiler). Configs build and START the worker;
+    # pre-built recorders are adopted un-started (tests drive drain())
+    # with the service's collector and shipper wired in if absent.
+    if isinstance(incidents, incident_mod.IncidentRecorder):
+      self.incidents = incidents
+      if self.incidents.collect is None:
+        self.incidents.collect = self._incident_context
+      if self.incidents.on_bundle is None and self.shipper is not None:
+        self.incidents.on_bundle = self.shipper.note_incident
+    elif incidents is not None:
+      self.incidents = incident_mod.IncidentRecorder(
+          incidents, collect=self._incident_context,
+          on_bundle=(self.shipper.note_incident
+                     if self.shipper is not None else None),
+          events=self.events, clock=clock).start()
+    else:
+      self.incidents = None
 
   def _on_slo_alert(self, name: str, firing: bool, details: dict) -> None:
-    self.events.emit("slo_alert", slo=name, firing=firing, **details)
+    record = self.events.emit("slo_alert", slo=name, firing=firing,
+                              **details)
+    # NULL_EVENTS returns None; the shipper and the hook still need the
+    # facts.
+    if record is None:
+      record = {"kind": "slo_alert", "slo": name, "firing": firing,
+                **details}
+    shipper = getattr(self, "shipper", None)
+    if shipper is not None:
+      # O(1) queue append — the off-host delivery happens on the
+      # shipper's own thread, never inside the alert (request) path.
+      shipper.note_alert(record)
+    incidents = getattr(self, "incidents", None)
+    if incidents is not None:
+      # Same contract: O(1) edge note here, bundle capture on the
+      # recorder's own worker thread (deduplicated until the clear).
+      incidents.note_alert(name, firing, details)
+    if self.alert_hook is None or self._closed:
+      return
+    # Off the request path, ONE worker draining a queue: a slow FIRE
+    # delivery must not be overtaken by its own CLEAR.
+    with self._alert_hook_lock:
+      if self._alert_hook_queue is None:
+        import queue
+
+        self._alert_hook_queue = queue.SimpleQueue()
+        threading.Thread(target=self._alert_hook_worker,
+                         name="mpi-serve-alert-hook", daemon=True).start()
+    self._alert_hook_queue.put(dict(record))
+
+  def _alert_hook_worker(self) -> None:
+    while True:
+      record = self._alert_hook_queue.get()
+      if record is None:  # close() sentinel: drain done, exit
+        return
+      try:
+        self.alert_hook(record)
+        with self._alert_hook_lock:
+          self.alert_hook_runs += 1
+      except Exception as e:  # noqa: BLE001 - a dead pager must not kill serving
+        with self._alert_hook_lock:
+          self.alert_hook_runs += 1
+          self.alert_hook_failures += 1
+        self.events.emit("alert_hook_failed", slo=record.get("slo"),
+                         firing=record.get("firing"), error=repr(e))
+
+  def _incident_context(self, alert: dict) -> dict:
+    """One incident bundle's context (the recorder's ``collect`` hook):
+    the SLO burn numbers, the slowest traces, the tsdb window over the
+    spike, the recent events, the brownout state, the hottest
+    attribution cells — frozen at the fire edge, plus optionally a
+    device-profile capture through the service's ``DeviceProfiler`` (a
+    capture already in flight, e.g. a concurrent ``/debug/profile``,
+    leaves ``{"error": ...ProfileBusyError...}`` instead). Runs on the
+    recorder's worker thread, never the request path."""
+    del alert  # the recorder already embeds the alert record itself
+    cfg = self.incidents.config
+    out: dict = {}
+    if self.slo is not None:
+      out["slo"] = self.slo.snapshot()
+    if self.tracer is not NULL_TRACER:
+      out["traces"] = self.tracer.snapshot(recent=cfg.traces_recent)
+    if self.tsdb is not None:
+      out["tsdb_window"] = {
+          "window_s": cfg.tsdb_window_s,
+          "families": self.tsdb.snapshot_since(
+              self.tsdb.now() - cfg.tsdb_window_s)}
+    out["events"] = self.events.snapshot(recent=cfg.events_recent)
+    if self.brownout is not None:
+      out["brownout"] = self.brownout.snapshot()
+    if self.attrib is not None:
+      out["attrib_top"] = self.attrib.top_cells(cfg.top_k_cells)
+    if cfg.profile_seconds > 0 and self.profiler is not None:
+      try:
+        out["profile"] = self.profile(cfg.profile_seconds)
+      except Exception as e:  # noqa: BLE001 - a busy/failing profiler
+        # must not cost the bundle its other slices.
+        out["profile"] = {"error": repr(e)}
+    return out
 
   def _on_brownout_transition(self, old: int, new: int,
                               reason: str) -> None:
@@ -929,6 +1129,26 @@ class RenderService:
       raise KeyError(f"unknown scene {sid!r}")
     return int(entry[0].shape[0]), int(entry[0].shape[1])
 
+  def _attrib_kwargs(self, attrib: "tuple | None",
+                     edge: str | None) -> dict:
+    """``record_request``'s attribution context for an edge-served
+    request (kwargs form: with the ledger off nothing is passed)."""
+    if self.attrib is None:
+      return {}
+    cls, level = attrib if attrib is not None else (None, 0)
+    return {"attrib": {"class": cls, "level": level, "edge": edge}}
+
+  def _attrib_bytes(self, scene_id, attrib: "tuple | None",
+                    nbytes) -> None:
+    """Account response payload bytes to the request's attribution cell
+    (no-op with the ledger off). Recorded at the serving front doors
+    (``render_edge``/``render_request``); raw ``render()`` callers get no
+    bytes attribution — they never serialized a response."""
+    if self.attrib is None:
+      return
+    cls, level = attrib if attrib is not None else (None, 0)
+    self.attrib.record_bytes(scene_id, cls, level, nbytes=int(nbytes))
+
   def _render_scheduled(self, scene_id: str, pose, timeout: float,
                         trace, degrade: int,
                         attrib: "tuple | None" = None) -> np.ndarray:
@@ -1029,6 +1249,7 @@ class RenderService:
     if self.edge is None:
       img = self._render_scheduled(str(scene_id), pose, timeout, trace,
                                    degrade, attrib)
+      self._attrib_bytes(scene_id, attrib, img.nbytes)
       return (img, {"edge": "off", "etag": None, "max_age_s": None,
                     "degraded": degrade > 0})
     t0 = self._clock()
@@ -1047,7 +1268,9 @@ class RenderService:
         span = trace.start_span("edge_hit", cell=list(cell))
         trace.end_span(span)
         self.metrics.record_request(self._clock() - t0, scene_id=scene_id,
-                                    trace_id=trace.trace_id or None)
+                                    trace_id=trace.trace_id or None,
+                                    **self._attrib_kwargs(attrib, "hit"))
+        self._attrib_bytes(scene_id, attrib, entry.frame.nbytes)
         trace.finish()
         # An exact hit is the stored full-quality frame whatever the
         # brownout level — it keeps its strong ETag and is NOT degraded.
@@ -1063,7 +1286,9 @@ class RenderService:
         self.metrics.record_warp_pose_error(
             warp_trans, warp_rot_deg, trace_id=trace.trace_id or None)
         self.metrics.record_request(self._clock() - t0, scene_id=scene_id,
-                                    trace_id=trace.trace_id or None)
+                                    trace_id=trace.trace_id or None,
+                                    **self._attrib_kwargs(attrib, "warp"))
+        self._attrib_bytes(scene_id, attrib, img.nbytes)
         trace.finish()
         # A warp served only because L3 widened the tolerance is
         # labelled degraded; one within the base tolerance is ordinary
@@ -1104,6 +1329,12 @@ class RenderService:
       if ttl is not None and e.retry_after_s is None:
         e.retry_after_s = ttl
       raise
+    self._attrib_bytes(scene_id, attrib, img.nbytes)
+    if self.attrib is not None and tiles:
+      # Tile-tier demand: the source tiles this miss's frustum could
+      # sample (hits and warps reuse pixels — no new tile reads).
+      cls, level = attrib if attrib is not None else (None, 0)
+      self.attrib.record_tiles(scene_id, cls, level, tiles=len(tiles))
     if degrade > 0:
       # Degraded render: labelled, un-ETag'd, and NEVER cached — the
       # cell stays empty until a full-quality render fills it.
@@ -1185,6 +1416,59 @@ class RenderService:
 
   # -- observability ------------------------------------------------------
 
+  def attrib_snapshot(self, top: int | None = None) -> dict:
+    """The ``/debug/attrib`` payload: the ledger snapshot plus the
+    conservation reconciliation against the metrics layer's own
+    (unrounded) request and phase totals. Raises ``RuntimeError`` when the
+    service was built without attribution (the handler answers 503)."""
+    if self.attrib is None:
+      raise RuntimeError(
+          "attribution disabled: construct RenderService with attrib "
+          "(serve --attrib)")
+    return self.attrib.snapshot(top=top,
+                                reference=self.metrics.attrib_reference())
+
+  def _render_metrics_text(self) -> str:
+    text = prom.render_serve_metrics(self.stats(),
+                                     self.metrics.latency_histogram())
+    if self.slo is not None:
+      text += self.slo.metrics_text()
+    # Flight-recorder families ride every exposition (zeros while the
+    # knobs are off — the always-exposed convention).
+    tsdb = getattr(self, "tsdb", None)
+    text += tsdb_mod.registry(
+        tsdb.stats() if tsdb is not None else None).render()
+    shipper = getattr(self, "shipper", None)
+    text += ship_mod.registry(
+        shipper.stats() if shipper is not None else None).render()
+    ledger = getattr(self, "attrib", None)
+    text += attrib_mod.registry(
+        ledger.snapshot() if ledger is not None else None).render()
+    incidents = getattr(self, "incidents", None)
+    text += incident_mod.registry(
+        incidents.stats() if incidents is not None else None).render()
+    return text
+
+  def metrics_text(self) -> str:
+    """The ``/metrics`` body: Prometheus text exposition of ``stats()``,
+    memoized for ``metrics_ttl_s`` (scrape storms cost one render)."""
+    return self._metrics_cache.get()
+
+  def events_snapshot(self, recent: int = 128,
+                      kind: str | None = None) -> dict:
+    """The ``/debug/events`` payload: the ring's snapshot and, with a
+    shipper attached, how many rotated segments made it off-host and how
+    many still wait on disk."""
+    out = self.events.snapshot(recent=recent, kind=kind)
+    if self.shipper is not None:
+      ship_stats = self.shipper.stats()
+      out.setdefault("retention", {})["shipped"] = {
+          "segments_shipped": ship_stats["segments_shipped"],
+          "segments_pending": self.shipper.pending_segments(),
+          "segment_errors": ship_stats["segment_errors"],
+      }
+    return out
+
   def profile(self, seconds: float) -> dict:
     """Capture a device profile of live traffic (``/debug/profile``).
 
@@ -1242,9 +1526,21 @@ class RenderService:
     out["events"] = {"emitted": self.events.emitted,
                      "dropped": self.events.dropped,
                      "sink_errors": self.events.sink_errors}
+    if self.tsdb is not None:
+      out["tsdb"] = self.tsdb.stats()
+    if self.shipper is not None:
+      out["ship"] = self.shipper.stats()
+    if self.attrib is not None:
+      out["attrib"] = self.attrib_snapshot()
+    if self.incidents is not None:
+      out["incidents"] = self.incidents.stats()
     if self.profiler is not None:
       out["profile"] = {"captures": self.profiler.captures,
                         "hook_failures": self.profile_hook_failures}
+    if self.alert_hook is not None:
+      with self._alert_hook_lock:
+        out["alert_hook"] = {"runs": self.alert_hook_runs,
+                             "failures": self.alert_hook_failures}
     return out
 
   def healthz(self) -> dict:
@@ -1317,7 +1613,20 @@ class RenderService:
   def close(self) -> None:
     if not self._closed:
       self._closed = True
+      if self.tsdb is not None:
+        self.tsdb.stop()
+      # Incidents stop BEFORE the shipper: the stop sentinel lands behind
+      # queued fire edges, so a capture racing close still reaches disk
+      # AND still hands its bundle to a live shipper.
+      if self.incidents is not None:
+        self.incidents.stop()
+      if self.shipper is not None:
+        self.shipper.stop()
       self.scheduler.stop()
+      with self._alert_hook_lock:
+        hook_queue = self._alert_hook_queue
+      if hook_queue is not None:
+        hook_queue.put(None)  # let the alert-hook worker exit
 
   def __enter__(self):
     return self
@@ -1395,6 +1704,17 @@ class _Handler(BaseHTTPRequestHandler):
                       status=503 if health["status"] == "unhealthy" else 200)
     elif parsed.path == "/stats":
       self._send_json(self.service.stats())
+    elif parsed.path == "/metrics":
+      # Default: classic text format, exemplars STRIPPED — a `#` after the
+      # value is a parse error that fails a vanilla Prometheus scrape.
+      # ?exemplars=1 (OpenMetrics-aware collectors) serves them inline.
+      text = self.service.metrics_text()
+      query = urllib.parse.parse_qs(parsed.query)
+      if query.get("exemplars", ["0"])[0] not in ("1", "true"):
+        text = prom.strip_exemplars(text)
+      self._send_bytes(
+          text.encode(),
+          content_type="text/plain; version=0.0.4; charset=utf-8")
     elif parsed.path == "/debug/traces":
       query = urllib.parse.parse_qs(parsed.query)
       tid = query.get("id", [None])[0]
@@ -1411,12 +1731,76 @@ class _Handler(BaseHTTPRequestHandler):
       except ValueError:
         self._send_json({"error": "recent must be an integer"}, status=400)
         return
-      self._send_json(self.service.events.snapshot(recent=recent,
+      self._send_json(self.service.events_snapshot(recent=recent,
                                                    kind=kind))
+    elif parsed.path == "/debug/tsdb":
+      self._do_tsdb(parsed.query)
+    elif parsed.path == "/debug/attrib":
+      self._do_attrib(parsed.query)
+    elif parsed.path == "/debug/incidents":
+      self._do_incidents(parsed.query)
     elif parsed.path == "/debug/profile":
       self._do_profile(parsed.query)
     else:
       self._send_json({"error": f"unknown path {self.path}"}, status=404)
+
+  def _do_tsdb(self, query: str) -> None:
+    """``/debug/tsdb?family=&recent=&points=``: windowed history from the
+    on-box time-series ring. Without ``family``, the index: resident
+    family names + recorder stats."""
+    if self.service.tsdb is None:
+      self._send_json(
+          {"error": "tsdb disabled: construct RenderService with tsdb "
+                    "(serve --tsdb-interval-s)"}, status=503)
+      return
+    try:
+      family, recent, points = tsdb_mod.parse_query(
+          urllib.parse.parse_qs(query))
+    except ValueError:
+      self._send_json({"error": "recent must be a number and points an "
+                                "integer"}, status=400)
+      return
+    if family:
+      self._send_json(self.service.tsdb.query(family, recent_s=recent,
+                                              points=points))
+    else:
+      self._send_json({"families": self.service.tsdb.families(),
+                       "stats": self.service.tsdb.stats()})
+
+  def _do_attrib(self, query: str) -> None:
+    """``/debug/attrib?top=K``: the resource-attribution ledger plus the
+    conservation reconciliation against the metrics totals."""
+    if self.service.attrib is None:
+      self._send_json(
+          {"error": "attribution disabled: construct RenderService with "
+                    "attrib (serve --attrib)"}, status=503)
+      return
+    try:
+      raw = urllib.parse.parse_qs(query).get("top", [None])[0]
+      top = int(raw) if raw is not None else None
+    except ValueError:
+      self._send_json({"error": "top must be an integer"}, status=400)
+      return
+    self._send_json(self.service.attrib_snapshot(top=top))
+
+  def _do_incidents(self, query: str) -> None:
+    """``/debug/incidents``: the bundle ring index (newest first) +
+    recorder stats; ``?id=incident-NNNNNN`` fetches one full bundle."""
+    if self.service.incidents is None:
+      self._send_json(
+          {"error": "incidents disabled: construct RenderService with "
+                    "incidents (serve --incident-dir)"}, status=503)
+      return
+    iid = urllib.parse.parse_qs(query).get("id", [None])[0]
+    if iid:
+      try:
+        self._send_json(self.service.incidents.get(iid))
+      except KeyError:
+        self._send_json({"error": f"unknown incident {iid!r}"},
+                        status=404)
+      return
+    self._send_json({"incidents": self.service.incidents.list(),
+                     "stats": self.service.incidents.stats()})
 
   def _do_profile(self, query: str) -> None:
     try:

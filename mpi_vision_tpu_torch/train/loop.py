@@ -308,6 +308,17 @@ def _close_iter(it) -> None:
     close()
 
 
+def _batch_examples(batch) -> int:
+  """Examples in one batch (the first tensor's leading dim; 1 when
+  unknowable) — feeds the telemetry's examples/s gauge, never
+  correctness."""
+  leaf = batch
+  while isinstance(leaf, (dict, list, tuple)) and leaf:
+    leaf = next(iter(leaf.values())) if isinstance(leaf, dict) else leaf[0]
+  shape = getattr(leaf, "shape", None)
+  return int(shape[0]) if shape else 1
+
+
 def _supports_skip(make_batches) -> bool:
   """Does ``make_batches`` accept an explicit ``skip`` keyword?
 
@@ -328,7 +339,7 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
                   step=None, save_every: int = 0, meta: Mapping | None = None,
                   resume: str = "auto", nan_guard=None, watchdog=None,
                   preemption=None, fault_source=None, on_epoch=None,
-                  log=None):
+                  telemetry=None, events=None, log=None):
   """Crash-safe epoch driver: periodic atomic checkpoints, bit-exact
   resume, NaN rollback, stall watchdog, preemption saves.
 
@@ -392,6 +403,13 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
     on_epoch: optional ``(state, epoch, epoch_losses) -> None`` called
       after each epoch-boundary save, at most once per epoch — a NaN
       rollback that re-finishes a reported epoch does not re-fire it.
+    telemetry: optional ``train.telemetry.TrainMetrics`` — the loop
+      records every step (wall time from before the step to the loss
+      read, which synchronises with the card), save, restore, rollback,
+      preemption and epoch into it.
+    events: optional ``obs.events.EventLog`` for loop-level lifecycle
+      events (``nan_rollback``, ``preempt``); the store emits its own
+      save / restore / quarantine events when built with one.
     log: optional ``str -> None`` diagnostics sink.
 
   Returns:
@@ -445,6 +463,8 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
       cursor = restored.meta.get("cursor", {})
       e, b = int(cursor.get("epoch", 0)), int(cursor.get("batch", 0))
       resumed_from = restored.step
+      if telemetry is not None:
+        telemetry.record_restore(restored.step)
       say(f"ckpt: resumed from step {restored.step} "
           f"(epoch {e}, batch {b})")
 
@@ -486,6 +506,14 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
                 "learning_rate": current_learning_rate(state), **user_meta}
     with wd_quiet():
       store.save(state.step, checkpoint_tree(state), meta=cur_meta)
+    if telemetry is not None:
+      # The store stamps the published save's cost; a BackgroundSaver
+      # reports the previously completed one (this loop never waited on
+      # the current write).
+      telemetry.record_save(state.step,
+                            getattr(store, "last_save_s", 0.0),
+                            getattr(store, "last_save_bytes", 0),
+                            reason=reason)
 
   if store.latest_step() is None:
     save("initial")  # the rollback anchor for fresh runs
@@ -537,10 +565,15 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
           batch = fault_source.poison_batch(batch)
         if preempt.requested.is_set():
           save("preempt")
+          if telemetry is not None:
+            telemetry.record_preemption(state.step)
+          if events is not None:
+            events.emit("preempt", step=state.step)
           say(f"ckpt: preempted at step {state.step}; saved")
           _close_iter(it)
           return state, finish_report(preempted=True)
         at = state.step
+        t_step = telemetry.clock() if telemetry is not None else 0.0
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         if not math.isfinite(loss):
@@ -568,6 +601,11 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
             raise NonFiniteLossError(
                 at, loss, "no checkpoint left to roll back to")
           rollback_steps.append(restored.step)
+          if telemetry is not None:
+            telemetry.record_rollback(restored.step)
+          if events is not None:
+            events.emit("nan_rollback", to_step=restored.step,
+                        at_step=at, loss=repr(loss))
           with wd_quiet():
             load_checkpoint_tree(state, restored.tree(template))
           old_lr = current_learning_rate(state)
@@ -592,6 +630,13 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
           break
         losses.append(loss)
         b += 1
+        if telemetry is not None:
+          # The loss read above synchronised with the card, so the window
+          # [t_step, now] covers the launches and the device work.
+          telemetry.record_step(state.step, loss,
+                                telemetry.clock() - t_step,
+                                examples=_batch_examples(batch),
+                                lr=current_learning_rate(state))
         if watchdog is not None:
           watchdog.beat()
         if save_every and state.step % save_every == 0:
@@ -605,6 +650,8 @@ def fit_resumable(state: TrainState, epochs: int, make_batches, store, *,
         continue
       finished = e
       e, b = e + 1, 0
+      if telemetry is not None:
+        telemetry.record_epoch(finished)
       if store.latest_step() != state.step:
         # Skipped when a periodic save already landed on this exact
         # step: the re-save would rewrite identical arrays (the two

@@ -105,6 +105,19 @@ def test_scan_covers_the_degraded_serving_slice():
     assert name in mods
 
 
+def test_scan_covers_the_compat_and_flight_recorder_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.compat",
+               "mpi_vision_tpu_torch.models.tiny_unet",
+               "mpi_vision_tpu_torch.obs.prom",
+               "mpi_vision_tpu_torch.obs.tsdb",
+               "mpi_vision_tpu_torch.obs.ship",
+               "mpi_vision_tpu_torch.obs.attrib",
+               "mpi_vision_tpu_torch.obs.incident",
+               "mpi_vision_tpu_torch.train.telemetry"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"
