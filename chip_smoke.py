@@ -193,9 +193,50 @@ Phases:
      ``--ckpt --metrics-port 0``: a scrape mid-run shows the
      ``mpi_train_*`` families and the steps run; the step ms beside phase
      7's.
+ 14. streaming sessions, the scene-asset tier with tile-diff scene sync and
+     the training job queue (the slice's main paths), each window with the
+     launch counts zeroed just before and read just after and no plain
+     version run in it. (a) ``RenderService(method="fused_pallas",
+     convention=EXACT, session=SessionConfig(fuse_max=4,
+     prefetch_horizon=3))`` on phase 12's 1080p x 32 scene behind
+     ``make_http_server``: two ``SessionClient``s stream 24 poses each along
+     pans while a third sends a truncated pose (its session answers an
+     error frame then the end frame); the frames arrive in seq order, each
+     bit-identical to a direct single-request render of its pose, one
+     within 1e-4 of ``plain_render``, and ``render_fused`` launches fewer
+     times than frames were served (fusion). With the edge cache on
+     (warps off), a paced steady pan: the predictor issues prefetches and
+     later poses hit them. Frames/s, first-frame ms, per-frame gap p50.
+     (b) The asset tier on phase 9's tiled scene (``tile="auto"``,
+     ``method="pallas"``) over HTTP: ``/scenes``, the manifest and its 304,
+     every tile asset's sha256 equal to its digest and decoding to the
+     registered tile bytes, every layer asset equal to
+     ``layer_to_png_bytes`` of its plane, the viewer referencing the layer
+     assets only. A ``serve --tiled --tile-size auto --scenes 0
+     --asset-sync-from <origin> --asset-sync-interval-s 0.5`` subprocess on
+     the same card syncs the scene; its frames for 8 poses are
+     bit-identical to the origin's; the origin re-registers the scene with
+     3 tiles changed and the follower's next sync fetches exactly those 3
+     and reuses the rest (its ``/stats`` and events), its frames again
+     equal to the origin's; the compose kernel launches on the origin and
+     the follower's engine is on the card. Sync ms and bytes, manifest and
+     asset GET ms. (c) ``cli.cmd_train_queue --device cuda --concurrency 3
+     --restart-budget 1 --publish`` over the JAX package's queue arc at
+     ``TrainConfig()`` (VGG loss on): ``good``, ``poison`` (SIGKILLs itself
+     before step 0 every attempt) and ``victim`` (SIGKILLs itself at step 1
+     on attempt 0), each attempt a ``train --device cuda`` child that
+     builds the kernels itself (the built libraries are removed first).
+     Poison is quarantined at exactly its budget, victim's digest equals
+     good's, every child says it ran on the card; both publishes are
+     swapped live by a ``CheckpointWatcher`` -> ``scenes_from_checkpoint``
+     -> ``swap_scenes`` stack under 2 HTTP clients with no failed request,
+     and the served scene ends as the last publish's bake. ``good``'s spec
+     in process through ``cli.cmd_train`` launches forward, A and B once a
+     step and ends on the queue's digest. Each child's time to its first
+     step, step ms, publish -> first frame.
 Then the ``{"kernels": [...]}`` line (each row with its launches in
-phase 11's, phase 12's and phase 13's windows), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+phase 11's, 12's, 13's and 14's windows), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,7 +247,10 @@ import hashlib
 import html.parser
 import json
 import os
+import re
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2883,6 +2927,773 @@ def phase13_flight(torch, dev, drill, workdir: str, step_ms7: float) -> dict:
   log(f"flight: phase 13 took {out['phase_s']:.1f} s")
   return out
 
+SESSION_POSES = 24
+PREFETCH_POSES = 16
+SYNC_TILES_CHANGED = 3
+QUEUE_SCENES = 4
+QUEUE_IMG, QUEUE_PLANES, QUEUE_VGG = 224, 10, True
+QUEUE_RESTART_BUDGET = 1
+QUEUE_CLIENTS = 2
+
+
+def phase14_sessions_assets_queue(torch, dev, drill, tscene,
+                                  workdir: str) -> dict:
+  """Streaming sessions, the scene-asset tier with tile-diff scene sync,
+  and the training job queue on the card (see the module docstring).
+  ``drill`` is phase 12's 1080p x 32 scene, ``tscene`` phase 9's tiled
+  scene."""
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.serve import (
+      EdgeConfig,
+      RenderService,
+      make_http_server,
+  )
+  from mpi_vision_tpu_torch.serve.assets import store as assets_store
+  from mpi_vision_tpu_torch.serve.session import (
+      SessionClient,
+      SessionConfig,
+      protocol,
+  )
+  from mpi_vision_tpu_torch.viewer import export as viewer_export
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, co.plain_composite,
+            rb.plain_rewarp_composite_vjp, rb.plain_adjoint_warp)
+  launches: dict = {}
+  device = dev.type
+
+  def zero():
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+
+  def read(name: str) -> dict:
+    """The launches since ``zero()`` as window ``name``; no plain version
+    may have run in it."""
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    launches[name] = counts
+    log(f"stream [{name}]: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}")
+    check(not any(plain.values()), f"{name}: a plain version ran: {plain}")
+    return counts
+
+  out: dict = {}
+  t_phase = time.perf_counter()
+  services, servers = [], []
+
+  def serve(svc):
+    services.append(svc)
+    httpd = make_http_server(svc, port=0)
+    servers.append(httpd)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd.server_address[1]
+
+  def stream(port, scene_id, poses, paced=False):
+    """One session: every pose sent up front (or, ``paced``, each after
+    the previous frame), frames read to the end. Returns the frames by
+    seq and the host times of the first send and of every frame."""
+    frames, arrivals = [], []
+    with SessionClient("127.0.0.1", port, scene_id, timeout=300) as client:
+      t0 = time.perf_counter()
+      if paced:
+        for i, pose in enumerate(poses):
+          client.send_pose(pose)
+          kind, parsed = client.read_event()
+          check(kind == protocol.KIND_FRAME, f"pose {i}: event {kind!r} "
+                f"{parsed if kind == protocol.KIND_ERROR else ''}")
+          frames.append(parsed)
+          arrivals.append(time.perf_counter())
+        client.end()
+        check(client.read_event()[0] == protocol.KIND_END,
+              "paced session did not end")
+      else:
+        for pose in poses:
+          client.send_pose(pose)
+        client.end()
+        for seq_img in client.frames():
+          frames.append(seq_img)
+          arrivals.append(time.perf_counter())
+    return frames, t0, arrivals
+
+  try:
+    # -- (a) sessions at full width -----------------------------------------
+    svc = RenderService(device=device, convention=Convention.EXACT,
+                        method="fused_pallas", max_batch=8, max_wait_ms=5.0,
+                        max_inflight=4, cache_bytes=4 << 30,
+                        session=SessionConfig(fuse_max=4,
+                                              prefetch_horizon=3))
+    svc.add_scene("drill_000", *drill)
+    port = serve(svc)
+    svc.render("drill_000", pan_pose(0.0))  # bake before the window
+    pans = {"a": [pan_pose(0.25 * i, 0.002 * i) for i in range(SESSION_POSES)],
+            "b": [pan_pose(-0.25 * i, -0.002 * i, 0.001 * i)
+                  for i in range(SESSION_POSES)]}
+    results: dict = {}
+    errors: list = []
+
+    def run(name):
+      try:
+        results[name] = stream(port, "drill_000", pans[name])
+      except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+        errors.append(e)
+
+    def truncated():
+      # A pose header announcing 64 bytes, 10 sent, then the write side
+      # closed: the session must answer an error frame then the end frame.
+      try:
+        with SessionClient("127.0.0.1", port, "drill_000",
+                           timeout=300) as client:
+          client.send_raw(struct.pack("<cI", protocol.KIND_POSE,
+                                      protocol.POSE_BYTES) + b"\0" * 10)
+          client.sock.shutdown(socket.SHUT_WR)
+          events = []
+          while True:
+            event = client.read_event()
+            if event is None:
+              break
+            events.append(event)
+            if event[0] == protocol.KIND_END:
+              break
+        results["truncated"] = events
+      except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+        errors.append(e)
+
+    zero()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(n,)) for n in pans]
+    threads.append(threading.Thread(target=truncated))
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(600)
+    wall = time.perf_counter() - t0
+    counts = read("sessions")
+    check(not errors, f"session streaming failed: {errors[:1]}")
+    kinds = [kind for kind, _ in results["truncated"]]
+    check(kinds[-2:] == [protocol.KIND_ERROR, protocol.KIND_END]
+          and "bad pose stream" in results["truncated"][-2][1]["error"],
+          f"truncated pose: events {kinds}")
+    served = 0
+    firsts, gaps = [], []
+    for name, poses in pans.items():
+      frames, t_send, arrivals = results[name]
+      check([seq for seq, _ in frames] == list(range(len(poses))),
+            f"session {name}: frames out of order or missing")
+      served += len(frames)
+      firsts.append((arrivals[0] - t_send) * 1e3)
+      gaps += [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])]
+    stats = svc.stats()["session"]
+    log(f"stream: {served} session frames in {wall:.3f}s "
+        f"({served / wall:.2f} frames/s), render_fused launched "
+        f"{counts['render_mpi_fused']} times; flushes {stats['flushes']}, "
+        f"mean flush {stats['mean_flush_size']}; truncated session events "
+        f"{[k.decode() for k in kinds]}")
+    check(0 < counts["render_mpi_fused"] < served,
+          f"no fusion: {counts['render_mpi_fused']} launches for {served} "
+          f"frames")
+    check(stats["frames"] == served and stats["active"] == 0,
+          f"session stats {stats}")
+    # Every frame against a direct single-request render of its pose.
+    baked = svc.cache.get("drill_000")
+    for name, poses in pans.items():
+      for (seq, frame), pose in zip(results[name][0], poses):
+        direct = render.render_views(
+            baked.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+            baked.depths, baked.intrinsics, convention=Convention.EXACT,
+            method="fused_pallas")[0].cpu().numpy()
+        check(np.array_equal(frame, direct),
+              f"session {name} frame {seq} differs from a direct render")
+    homs = render_fused.pixel_homographies(
+        torch.from_numpy(pans["a"][5][None]).to(dev), baked.depths,
+        baked.intrinsics[None], HEIGHT, WIDTH,
+        Convention.EXACT).transpose(0, 1).contiguous()
+    plain_err = float(np.abs(results["a"][0][5][1] - render_fused.plain_render(
+        baked.planes, homs)[0].cpu().numpy()).max())
+    check(plain_err <= TOL, f"session frame vs plain version {plain_err}")
+    out["sessions"] = {
+        "frames": served, "seconds": wall, "frames_per_s": served / wall,
+        "first_frame_ms": firsts,
+        "frame_gap_ms_p50": statistics.median(gaps),
+        "launches": counts["render_mpi_fused"],
+        "mean_flush_size": stats["mean_flush_size"],
+        "plain_max_abs_err": plain_err}
+    del results, baked
+
+    # Edge cache on, a steady pan, each pose sent after the previous frame:
+    # the predictor warms cells ahead of the camera. Steps of 1/64 in
+    # float32 make the extrapolated poses exactly the poses the client
+    # sends next, so a hit serves the frame of its own pose.
+    edge = RenderService(device=device, convention=Convention.EXACT,
+                         method="fused_pallas", max_batch=8, max_wait_ms=2.0,
+                         cache_bytes=4 << 30,
+                         edge=EdgeConfig(trans_cell=1 / 64,
+                                         rot_bucket_deg=2.0,
+                                         warp_max_trans=0.0,
+                                         warp_max_rot_deg=0.0,
+                                         byte_budget=2 << 30),
+                         session=SessionConfig(fuse_max=1,
+                                               prefetch_horizon=3))
+    edge.add_scene("drill_000", *drill)
+    eport = serve(edge)
+    edge.render("drill_000", pan_pose(0.0, 0.5))  # bake, off the pan
+    steady = [pan_pose(0.0, (i + 0.5) / 64) for i in range(PREFETCH_POSES)]
+    zero()
+    frames, t_send, arrivals = stream(eport, "drill_000", steady, paced=True)
+    time.sleep(0.5)  # let the last speculative renders land
+    counts = read("prefetch")
+    est = edge.stats()
+    prefetch = est["session"]["prefetch"]
+    log(f"stream: prefetch over a steady pan: {json.dumps(prefetch)}; edge "
+        f"hits {est['edge']['hits']}, misses {est['edge']['misses']}; "
+        f"render_fused {counts['render_mpi_fused']} launches for "
+        f"{len(frames)} frames")
+    check(prefetch["issued"] > 0 and prefetch["hits"] > 0,
+          f"prefetch never warmed a later pose: {prefetch}")
+    baked = edge.cache.get("drill_000")
+    for (seq, frame), pose in zip(frames, steady):
+      direct = render.render_views(
+          baked.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+          baked.depths, baked.intrinsics, convention=Convention.EXACT,
+          method="fused_pallas")[0].cpu().numpy()
+      check(np.array_equal(frame, direct),
+            f"prefetch session frame {seq} differs from a direct render")
+    del baked
+    out["prefetch"] = {
+        "frames": len(frames), "issued": prefetch["issued"],
+        "hits": prefetch["hits"], "edge_hits": est["edge"]["hits"],
+        "edge_misses": est["edge"]["misses"],
+        "launches": counts["render_mpi_fused"],
+        "frame_gap_ms_p50": statistics.median(
+            (b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:]))}
+    for s in servers:
+      s.shutdown()
+      s.server_close()
+    for s in services:
+      s.close()
+    services.clear()
+    servers.clear()
+    torch.cuda.empty_cache()
+
+    # -- (b) the asset tier and tile-diff scene sync ------------------------
+    layers, depths, k = tscene
+    origin = RenderService(device=device, method="pallas", tile="auto",
+                           convention=Convention.EXACT, max_batch=8,
+                           max_wait_ms=5.0, cache_bytes=8 << 30,
+                           asset_cache_bytes=2 << 30)
+    origin.add_scene("tiled_000", layers, depths, k)
+    oport = serve(origin)
+    base = f"http://127.0.0.1:{oport}"
+
+    def get(url, etag=None):
+      req = urllib.request.Request(url)
+      if etag:
+        req.add_header("If-None-Match", etag)
+      try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+          return resp.status, dict(resp.headers.items()), resp.read()
+      except urllib.error.HTTPError as e:
+        with e:
+          return e.code, dict(e.headers.items()), e.read()
+
+    status, _, body = get(base + "/scenes")
+    check(status == 200 and json.loads(body) == {"scenes": ["tiled_000"]},
+          f"/scenes: {status} {body[:200]}")
+    t0 = time.perf_counter()
+    status, headers, body = get(base + "/scene/tiled_000/manifest")
+    manifest_build_ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200, f"manifest: {status}")
+    man = json.loads(body)
+    t0 = time.perf_counter()
+    status, _, _ = get(base + "/scene/tiled_000/manifest")
+    manifest_ms = (time.perf_counter() - t0) * 1e3
+    status304, _, body304 = get(base + "/scene/tiled_000/manifest",
+                               etag=headers["ETag"])
+    check(status304 == 304 and body304 == b"",
+          f"manifest revalidation answered {status304}")
+    meta = origin.tile_meta("tiled_000")
+    grid = meta.grid
+    n_tiles = grid.rows * grid.cols
+    check(man["tiles"] == [[meta.digests[i][j] for j in range(grid.cols)]
+                           for i in range(grid.rows)],
+          "manifest tiles differ from the registry's digests")
+
+    def tile_asset(ij):
+      """GET one tile asset; its bytes decode to the registered tile's
+      and hash to its digest. Returns the encoded size."""
+      i, j = ij
+      digest = man["tiles"][i][j]
+      status, headers, body = get(f"{base}/scene/tiled_000/asset/{digest}")
+      check(status == 200 and headers["ETag"] == f'"{digest}"',
+            f"tile ({i},{j}): {status}")
+      raw = assets_store.decode_tile(body)
+      y0, y1, x0, x1 = grid.rect(i, j)
+      check(hashlib.sha256(raw).hexdigest() == digest
+            and raw == np.ascontiguousarray(layers[y0:y1, x0:x1]).tobytes(),
+            f"tile ({i},{j}) asset is not the registered tile bytes")
+      return len(body)
+
+    def layer_asset(plane):
+      digest = man["layers"][plane]
+      status, _, body = get(f"{base}/scene/tiled_000/asset/{digest}")
+      check(status == 200 and body == viewer_export.layer_to_png_bytes(
+          layers[:, :, plane]), f"layer {plane} asset differs from its PNG")
+      return len(body)
+
+    # Eight at a time: the service encodes on its handler threads and zlib,
+    # sha256 and the PNG encoder release the interpreter lock.
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+      t0 = time.perf_counter()
+      tile_bytes = sum(pool.map(tile_asset, [
+          (i, j) for i in range(grid.rows) for j in range(grid.cols)]))
+      tiles_s = time.perf_counter() - t0
+      layer_bytes = sum(pool.map(layer_asset, range(len(man["layers"]))))
+    t0 = time.perf_counter()
+    status, _, body = get(f"{base}/scene/tiled_000/asset/{man['tiles'][0][0]}")
+    asset_ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200, f"resident tile asset: {status}")
+    status, _, body = get(base + "/scene/tiled_000/viewer")
+    html_text = body.decode()
+    refs = set(re.findall(r'"(/scene/[^"]*)"', html_text))
+    want_refs = {f"/scene/tiled_000/asset/{d}" for d in man["layers"]}
+    check(status == 200 and refs == want_refs and "data:" not in html_text
+          and "base64" not in html_text,
+          f"viewer references {len(refs)} paths, not the {len(want_refs)} "
+          "layer assets alone")
+    log(f"assets: {n_tiles} tiles ({tile_bytes} bytes zlib'd, "
+        f"{tiles_s:.2f}s) and {len(man['layers'])} layers ({layer_bytes} "
+        f"bytes PNG) verified; manifest GET {manifest_ms:.2f} ms (first "
+        f"{manifest_build_ms:.1f} ms with the layer encode), one asset GET "
+        f"{asset_ms:.2f} ms; viewer references the layer assets only")
+
+    # The follower: a serve CLI on the same card, syncing from the origin.
+    port_file = os.path.join(workdir, "follower.port")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    follower_err = os.path.join(workdir, "follower.err")
+    follower_log = open(follower_err, "wb")
+    follower = subprocess.Popen(
+        [sys.executable, "-m", "mpi_vision_tpu_torch", "serve", "--tiled",
+         "--tile-size", "auto", "--convention", "exact", "--device", device,
+         "--scenes", "0", "--asset-sync-from", base,
+         "--asset-sync-interval-s", "0.5", "--port", "0",
+         "--port-file", port_file, "--cache-mb", "8192"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=follower_log)
+    try:
+      t0 = time.perf_counter()
+      fbase = None
+      while time.perf_counter() - t0 < 300:
+        if follower.poll() is not None:
+          with open(follower_err, "rb") as fh:
+            tail = fh.read()[-3000:].decode(errors="replace")
+          raise SmokeError(f"follower exited rc {follower.returncode}:\n"
+                           f"{tail}")
+        if fbase is None and os.path.exists(port_file):
+          fbase = f"http://127.0.0.1:{open(port_file).read().strip()}"
+        if fbase is not None:
+          try:
+            if get(fbase + "/healthz")[0] == 200:
+              break
+          except (urllib.error.URLError, ConnectionError):
+            pass
+        time.sleep(0.05)
+      follower_up_s = time.perf_counter() - t0
+      check(fbase is not None, "the follower never wrote its port")
+
+      def sync_events():
+        ev = json.loads(get(fbase + "/debug/events?recent=4096")[2])
+        return [e for e in ev["events"] if e["kind"].startswith("scene_sync")]
+
+      def wait_sync(done, what):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 300:
+          stats = json.loads(get(fbase + "/stats")[2])
+          if done(stats["scene_sync"]):
+            return stats
+          time.sleep(0.05)
+        raise SmokeError(f"follower: {what} never happened")
+
+      fstats = wait_sync(lambda s: s["tiles_fetched"] >= n_tiles,
+                         "the first sync")
+      check(fstats["engine"]["platform"] == device,
+            f"follower engine {fstats['engine']}")
+      poses = [pan_pose(2.0 * i - 7.0, 0.01 * i) for i in range(8)]
+
+      def compare(tag):
+        zero()
+        theirs = [fetch(int(fbase.rsplit(":", 1)[1]), "tiled_000", p)
+                  for p in poses]
+        ours = [fetch(oport, "tiled_000", p) for p in poses]
+        counts = read(tag)
+        for i, ((s1, _, f1), (s2, _, f2)) in enumerate(zip(theirs, ours)):
+          check(s1 == s2 == 200 and np.array_equal(f1, f2),
+                f"{tag}: pose {i}: the follower's frame differs from the "
+                "origin's")
+        check(counts["over_composite_pallas"] > 0,
+              f"{tag}: the compose kernel never launched")
+        return counts
+
+      compare("sync_full")
+      # Re-register the scene with exactly k tiles changed.
+      changed = np.array(layers, copy=True)
+      picks = [(0, 0), (grid.rows // 2, grid.cols // 2),
+               (grid.rows - 1, grid.cols - 1)][:SYNC_TILES_CHANGED]
+      for (i, j) in picks:
+        y0, y1, x0, x1 = grid.rect(i, j)
+        changed[y0:y1, x0:x1] = (changed[y0:y1, x0:x1] + 0.125) % 1.0
+      before = len(sync_events())
+      origin.add_scene("tiled_000", changed, depths, k)
+      check(len(origin.tile_meta("tiled_000").changed_tiles(meta))
+            == SYNC_TILES_CHANGED, "the re-registration changed other tiles")
+      fstats = wait_sync(
+          lambda s: s["tiles_fetched"] >= n_tiles + SYNC_TILES_CHANGED,
+          "the diff sync")
+      check(fstats["scene_sync"]["tiles_fetched"]
+            == n_tiles + SYNC_TILES_CHANGED,
+            f"follower fetched {fstats['scene_sync']['tiles_fetched']} tiles "
+            f"in all, not {n_tiles} + {SYNC_TILES_CHANGED}")
+      events = sync_events()
+      ends = [e for e in events if e["kind"] == "scene_sync_end"
+              and e.get("tiles_fetched")]
+      begins = {e["seq"]: e for e in events
+                if e["kind"] == "scene_sync_begin"}
+      check(len(ends) == 2, f"follower syncs that fetched: {ends}")
+      full_end, diff_end = ends
+      check(diff_end["tiles_fetched"] == SYNC_TILES_CHANGED
+            and diff_end["tiles_reused"] == n_tiles - SYNC_TILES_CHANGED,
+            f"diff sync {diff_end}")
+      check(len(events) > before, "no sync event after the re-registration")
+
+      def span_ms(end):
+        begin = max((b for s, b in begins.items() if s < end["seq"]),
+                    key=lambda b: b["seq"])
+        return (end["ts_unix_s"] - begin["ts_unix_s"]) * 1e3
+
+      compare("sync_diff")
+      out["assets"] = {
+          "tiles": n_tiles, "tile": grid.tile, "planes": len(man["layers"]),
+          "tile_asset_bytes": tile_bytes, "layer_asset_bytes": layer_bytes,
+          "manifest_get_ms": manifest_ms,
+          "manifest_first_get_ms": manifest_build_ms,
+          "asset_get_ms": asset_ms, "follower_up_s": follower_up_s,
+          "full_sync": {"ms": span_ms(full_end),
+                        "bytes": full_end["bytes_fetched"],
+                        "tiles_fetched": full_end["tiles_fetched"]},
+          "diff_sync": {"ms": span_ms(diff_end),
+                        "bytes": diff_end["bytes_fetched"],
+                        "tiles_fetched": diff_end["tiles_fetched"],
+                        "tiles_reused": diff_end["tiles_reused"]},
+          "scene_bytes": HEIGHT * WIDTH * PLANES * 16,
+          "follower_platform": fstats["engine"]["platform"]}
+      log(f"assets: follower up in {follower_up_s:.1f}s on "
+          f"{fstats['engine']['platform']}; full sync {json.dumps(out['assets']['full_sync'])}, "
+          f"diff sync {json.dumps(out['assets']['diff_sync'])}; frames for "
+          f"{len(poses)} poses bit-identical to the origin's after each")
+    finally:
+      follower.terminate()
+      try:
+        follower.wait(60)
+      except subprocess.TimeoutExpired:
+        follower.kill()
+        follower.wait(30)
+      follower_log.close()
+    for s in servers:
+      s.shutdown()
+      s.server_close()
+    for s in services:
+      s.close()
+    services.clear()
+    servers.clear()
+    torch.cuda.empty_cache()
+
+    # -- (c) the training queue at TrainConfig() ---------------------------
+    out["queue"] = queue_arc(torch, dev, workdir, zero, read, serve)
+  finally:
+    for s in servers:
+      s.shutdown()
+      s.server_close()
+    for s in services:
+      s.close()
+  out["launches"] = launches
+  out["phase_s"] = time.perf_counter() - t_phase
+  log(f"stream: phase 14 took {out['phase_s']:.1f} s")
+  return out
+
+
+def queue_arc(torch, dev, workdir, zero, read, serve) -> dict:
+  """Phase 14 (c): ``cli.cmd_train_queue`` over the three jobs of the JAX
+  package's queue arc, each attempt a ``train --device`` child, with the
+  ``serve --reload-ckpt-s`` stack in miniature swapping every publish in
+  under render traffic; then ``good``'s spec in process, counted.
+  ``zero``/``read``/``serve`` are phase 14's window and server helpers."""
+  from mpi_vision_tpu_torch import cli
+  from mpi_vision_tpu_torch.ckpt import CheckpointStore, CheckpointWatcher
+  from mpi_vision_tpu_torch.ckpt.export import scenes_from_checkpoint
+  from mpi_vision_tpu_torch.kernels import _build
+  from mpi_vision_tpu_torch.serve import RenderService
+  from mpi_vision_tpu_torch.tools.train_resume import store_digest
+  from mpi_vision_tpu_torch.train.queue import JobQueue
+
+  device = dev.type
+  root = os.path.join(workdir, "queue")
+  work = os.path.join(root, "work")
+  publish_root = os.path.join(workdir, "publish")
+  spec = {"epochs": 1, "img_size": QUEUE_IMG, "num_planes": QUEUE_PLANES,
+          "synthetic_scenes": QUEUE_SCENES, "save_every": 1, "seed": 7,
+          "vgg": QUEUE_VGG}
+
+  def job(job_id, **extra):
+    # Each child also logs its steps (wall ms) beside its event log.
+    return {**spec, **extra, "id": job_id, "extra_args": [
+        "--metrics-log", os.path.join(work, job_id, "metrics.jsonl")]}
+
+  jobs = [job("good"), job("poison", seed=3, faults=["crash@step=0,hard"]),
+          job("victim", faults=["crash@step=1,hard,attempt=0"])]
+  argv = ["train-queue", "--root", root, "--work", work, "--device", device,
+          "--publish", publish_root, "--concurrency", "3", "--probe-s", "0.5",
+          "--wedge-after", "30",
+          "--restart-budget", str(QUEUE_RESTART_BUDGET), "--drain",
+          "--duration", "600", "--event-log",
+          os.path.join(workdir, "queue_events.jsonl")]
+  for j in jobs:
+    argv += ["--submit", json.dumps(j)]
+  # The children build the kernels themselves: each compiles into its own
+  # per-pid temp file and renames it into place, concurrently.
+  moved = 0
+  if device == "cuda":
+    for name in _build.sources():
+      lib = _build.library_path(name)
+      if lib.exists():
+        lib.unlink()
+        moved += 1
+  out: dict = {}
+
+  def drain():
+    try:
+      out["summary"] = cli.cmd_train_queue(cli.build_parser().parse_args(argv))
+    except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
+      out["error"] = e
+
+  mem_used: list = []
+  drainer = threading.Thread(target=drain)
+  t_queue = time.perf_counter()
+  drainer.start()
+  publish = CheckpointStore(publish_root)
+  while publish.latest_step() is None and drainer.is_alive():
+    mem_used.append(card_memory_used_mb())
+    time.sleep(0.25)
+  check(publish.latest_step() is not None,
+        f"no job published: {out.get('error')!r}")
+  first_step = publish.latest_step()
+
+  def bake():
+    return scenes_from_checkpoint(publish_root, scenes=1, stable_ids=True,
+                                  device=device)[0]
+
+  svc = RenderService(device=device, max_batch=4, max_wait_ms=2.0)
+  scenes = bake()
+  for sid, rgba, depths, k in scenes:
+    svc.add_scene(sid, rgba, depths, k)
+  sid0 = scenes[0][0]
+  port = serve(svc)
+  swaps: list = []  # (step, wall time the swap returned)
+  last_bake: list = []
+
+  def reload_step(step):
+    new_scenes = bake()
+    svc.swap_scenes({sid: (rgba, depths, k)
+                     for sid, rgba, depths, k in new_scenes}, prebake=True)
+    last_bake[:] = new_scenes
+    swaps.append((step, time.time()))
+
+  watcher = CheckpointWatcher(publish, reload_step, poll_s=0.1,
+                              initial_step=first_step).start()
+  stop = threading.Event()
+  failures: list = []
+  served: list = []  # (wall start, wall end) of each 200
+
+  def client(c):
+    i = 0
+    while not stop.is_set():
+      i += 1
+      pose = pan_pose(0.5 * (i % 9) - 2.0, 0.002 * c)
+      t0 = time.time()
+      try:
+        status, _, frame = fetch(port, sid0, pose)
+        if status != 200 or not np.isfinite(frame).all():
+          failures.append(f"status {status}")
+          continue
+      except Exception as e:  # noqa: BLE001 - every failure is counted
+        failures.append(repr(e))
+        continue
+      served.append((t0, time.time()))
+
+  t_serving = time.time()
+  zero()
+  clients = [threading.Thread(target=client, args=(c,))
+             for c in range(QUEUE_CLIENTS)]
+  for t in clients:
+    t.start()
+  while drainer.is_alive():
+    mem_used.append(card_memory_used_mb())
+    drainer.join(0.25)
+  queue_s = time.perf_counter() - t_queue
+  check("error" not in out, f"train-queue failed: {out.get('error')!r}")
+  t0 = time.perf_counter()
+  while (watcher.seen_step != publish.latest_step()
+         and time.perf_counter() - t0 < 60):
+    time.sleep(0.05)
+  time.sleep(0.5)  # traffic on the last bake
+  stop.set()
+  for t in clients:
+    t.join(120)
+  watcher.stop()
+  counts = read("queue_serve")
+  summary = out["summary"]
+  log(f"queue: summary {json.dumps(summary)} in {queue_s:.1f}s; "
+      f"{len(served)} requests served, {len(failures)} failed, swaps "
+      f"{[s for s, _ in swaps]}; card memory used up to "
+      f"{max((m for m in mem_used if m is not None), default=None)} MB")
+  check(summary["drained"] is True and summary["device"] == device,
+        f"queue: {summary}")
+  check(not failures, f"queue: {len(failures)} failed requests: "
+        f"{failures[:3]}")
+  check(counts["render_mpi_fused"] > 0 and served,
+        f"queue: the served stack never launched render_fused: {counts}")
+  check(len(publish.steps()) == 2 and watcher.seen_step == publish.latest_step()
+        and swaps and swaps[-1][0] == publish.latest_step(),
+        f"queue: published {publish.steps()}, seen {watcher.seen_step}, "
+        f"swaps {swaps}")
+  # After the last swap the service renders the last bake.
+  sid, rgba, depths, k = last_bake[0]
+  with RenderService(device=device, max_batch=1) as fresh:
+    fresh.add_scene(sid, rgba, depths, k)
+    pose = pan_pose(1.0, 0.01)
+    check(np.array_equal(svc.render(sid, pose), fresh.render(sid, pose)),
+          "queue: the served scene is not the last publish's bake")
+  queue = JobQueue(root)
+  states = {j: (queue.get(j).state, queue.get(j).attempts)
+            for j in ("good", "poison", "victim")}
+  log(f"queue: jobs {json.dumps(states)}")
+  check(states["poison"] == ("quarantined", 1 + QUEUE_RESTART_BUDGET)
+        and summary["quarantines"] == 1,
+        f"queue: poison {states['poison']}, not quarantined at its budget")
+  check(states["good"] == ("done", 1) and states["victim"] == ("done", 2),
+        f"queue: {states}")
+  digests = {j: store_digest(CheckpointStore(os.path.join(work, j, "ckpt")))
+             for j in ("good", "victim")}
+  check(digests["victim"] == digests["good"] != "",
+        f"queue: victim's digest differs from good's: {digests}")
+  # What each child said, and how long each took to its first step (the
+  # child's first saved step, against the attempt's start in the record).
+  children, first_step_s, step_ms = [], {}, {}
+  for j in ("good", "poison", "victim"):
+    record = queue.get(j).record
+    starts = [h["ts_unix_s"] for h in record["history"]
+              if h["event"] == "started"]
+    saves = []
+    path = os.path.join(work, j, "events.jsonl")
+    if os.path.exists(path):
+      with open(path) as fh:
+        saves = [e for e in map(json.loads, fh) if e["kind"] == "ckpt_save"
+                 and e.get("step", 0) >= 1]
+    for attempt, start in enumerate(starts):
+      with open(os.path.join(work, j, f"attempt-{attempt}.err")) as fh:
+        said = re.findall(r"^train: .* planes on (\S+), render method",
+                          fh.read(), re.M)
+      with open(os.path.join(work, j, f"attempt-{attempt}.out")) as fh:
+        lines = fh.read().splitlines()
+      if lines:  # a summary: the attempt finished
+        said.append(json.loads(lines[-1])["device"])
+      children.append(said)
+      later = [e["ts_unix_s"] for e in saves if e["ts_unix_s"] >= start]
+      if later:
+        first_step_s[f"{j}_{attempt}"] = min(later) - start
+    path = os.path.join(work, j, "metrics.jsonl")
+    if os.path.exists(path):
+      with open(path) as fh:
+        walls = [r["wall_ms"] for r in map(json.loads, fh)
+                 if r.get("event") == "train_step"]
+      if len(walls) > 1:
+        step_ms[j] = statistics.median(walls[1:])
+  check(len(children) == 5 and all(
+      said and all(d.startswith(device) for d in said) for said in children),
+        f"queue: the children's devices, by attempt: {children}")
+  # Publish -> first frame from the new checkpoint.
+  published = {}
+  with open(os.path.join(workdir, "queue_events.jsonl")) as fh:
+    for e in map(json.loads, fh):
+      if e["kind"] == "training_job_published":
+        published[e["published_step"]] = e["ts_unix_s"]
+  to_frame = {}
+  for step, t_pub in published.items():
+    after = ([t_serving] if step == first_step
+             else [t for s, t in swaps if s == step])
+    done = [end for start, end in served if start >= after[0]] if after else []
+    if done:
+      to_frame[str(step)] = min(done) - t_pub
+  # good's spec in process, counted: forward, A and B once a step, and the
+  # same digest as the queue's child.
+  args = cli.build_parser().parse_args([
+      "train", "--synthetic", "--synthetic-scenes", str(QUEUE_SCENES),
+      "--img-size", str(QUEUE_IMG), "--num-planes", str(QUEUE_PLANES),
+      "--epochs", "1", "--seed", "7", "--no-valid", "--device", device,
+      "--dataset", os.path.join(workdir, "queue_data"),
+      "--ckpt", os.path.join(workdir, "queue_inproc"), "--save-every", "1",
+      "--metrics-log", os.path.join(workdir, "queue_inproc.jsonl"),
+      *([] if QUEUE_VGG else ["--no-vgg-loss"])])
+  zero()
+  t0 = time.perf_counter()
+  inproc = cli.cmd_train(args)
+  torch.cuda.synchronize()
+  inproc_s = time.perf_counter() - t0
+  counts = read("queue_inproc")
+  steps = inproc["steps"]
+  check(steps == QUEUE_SCENES and all(
+      counts[n] == steps for n in ("render_mpi_fused", "rewarp_composite_vjp",
+                                   "adjoint_warp")),
+        f"queue in process: {steps} steps, launches {counts}")
+  with open(os.path.join(workdir, "queue_inproc.jsonl")) as fh:
+    walls = [r["wall_ms"] for r in map(json.loads, fh)
+             if r.get("event") == "train_step"]
+  inproc_step_ms = statistics.median(walls[1:])
+  inproc_digest = store_digest(CheckpointStore(
+      os.path.join(workdir, "queue_inproc")))
+  check(inproc_digest == digests["good"],
+        "queue: the in-process run's digest differs from the queue's good")
+  result = {
+      "seconds": queue_s, "jobs": {j: list(v) for j, v in states.items()},
+      "spawns": summary["spawns"], "publishes": summary["publishes"],
+      "requests_served": len(served), "requests_failed": len(failures),
+      "children_devices": children, "first_step_s": first_step_s,
+      "child_step_ms_p50": step_ms,
+      "inproc_step_ms_p50": inproc_step_ms, "inproc_run_s": inproc_s,
+      "publish_to_first_frame_s": to_frame,
+      "card_memory_used_mb_max": max(
+          (m for m in mem_used if m is not None), default=None),
+      "libraries_rebuilt_by_children": moved, "digest": digests["good"][:16]}
+  log(f"queue: {json.dumps(result)}")
+  return result
+
+
+def card_memory_used_mb():
+  """The card's used memory in MB (``nvidia-smi``; every process on it)."""
+  try:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return int(res.stdout.split()[0])
+  except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+    return None
+
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -3234,9 +4045,17 @@ def main() -> int:
   with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as workdir:
     flight = phase13_flight(torch, dev, drill_future.result(), workdir,
                             step_times["step_ms"])
-  scene_pool.shutdown()
   log(json.dumps({"times_flight": {
       "card": card, **flight,
+      "seconds_total": time.perf_counter() - t_start}}))
+
+  # -- 14. sessions, the asset tier and scene sync, the training queue ------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as workdir:
+    stream = phase14_sessions_assets_queue(
+        torch, dev, drill_future.result(), tiled_future.result(), workdir)
+  scene_pool.shutdown()
+  log(json.dumps({"times_stream": {
+      "card": card, **stream,
       "seconds_total": time.perf_counter() - t_start}}))
 
   # -- result lines --------------------------------------------------------
@@ -3287,6 +4106,9 @@ def main() -> int:
     row["phase13_launches"] = {
         window: counts[counters[row["name"]]]
         for window, counts in flight["launches"].items()}
+    row["phase14_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in stream["launches"].items()}
   # The compose kernel against its plain version at brownout's shapes
   # (thinned planes, 540-row targets).
   comp_row = next(row for row in rows if row["name"] == "over_composite")

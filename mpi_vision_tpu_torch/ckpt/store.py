@@ -597,6 +597,64 @@ class CheckpointStore:
       self.events.emit("ckpt_quarantine", step=int(step), reason=reason)
     return dst
 
+  # -- cross-store publish --------------------------------------------------
+
+  def publish_from(self, src_root: str, meta_extra: dict | None = None
+                   ) -> tuple[int, int]:
+    """Copy ``src_root``'s newest GOOD checkpoint into this store under
+    the next free step number; returns ``(published_step, source_step)``.
+
+    The training-queue ingest edge: a completed job's private store is
+    republished into the fleet's watch directory (the ``serve
+    --reload-ckpt-s`` store) as a monotonically newer step, so the
+    ``CheckpointWatcher`` fires exactly once per publish. The arrays
+    file is copied byte-for-byte (the per-array hashes stay valid, so
+    the published params are provably bit-identical to what the job
+    trained); only the manifest's ``step`` and ``meta`` are rewritten.
+    The source is fully validated first — a corrupt newest checkpoint
+    quarantines (in the SOURCE store) and the next-newest good one
+    publishes instead, the standard rollback.
+    """
+    src = CheckpointStore(src_root, clock=self.clock)
+    restored = src.restore()
+    if restored is None:
+      raise FileNotFoundError(
+          f"no restorable checkpoint under {src_root} to publish")
+    latest = self.latest_step()  # NOT `or -1`: step 0 is falsy
+    step = 0 if latest is None else latest + 1
+    self._seq += 1
+    tmp = os.path.join(
+        self.root, f".tmp-step_{step:010d}-{self._wtoken}-{self._seq}")
+    os.makedirs(tmp)
+    try:
+      shutil.copyfile(os.path.join(restored.path, _ARRAYS),
+                      os.path.join(tmp, _ARRAYS))
+      with open(os.path.join(tmp, _ARRAYS), "rb") as fh:
+        os.fsync(fh.fileno())
+      manifest = dict(restored.manifest)
+      manifest["step"] = step
+      manifest["meta"] = {**restored.meta,
+                          "published_from_step": restored.step,
+                          **(meta_extra or {})}
+      with open(os.path.join(tmp, _MANIFEST), "w") as fh:
+        json.dump(manifest, fh, indent=1, sort_keys=True)
+        fh.flush()
+        os.fsync(fh.fileno())
+      _fsync_dir(tmp)
+      os.rename(tmp, self._step_dir(step))
+      _fsync_dir(self.root)
+    except BaseException:
+      shutil.rmtree(tmp, ignore_errors=True)
+      raise
+    self.saves += 1
+    self.last_save_bytes = sum(a.nbytes for a in restored.arrays.values())
+    if self.events is not None:
+      self.events.emit("ckpt_publish", step=step,
+                       source_step=restored.step,
+                       bytes=self.last_save_bytes)
+    self.gc()
+    return step, restored.step
+
   def restore(self, step: int | None = None, template=None,
               on_quarantine: Callable[[int, str], None] | None = None
               ) -> Restored | None:

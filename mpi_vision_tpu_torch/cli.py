@@ -31,6 +31,15 @@
     ``--alert-hook``, ``--tsdb-interval-s`` (``/debug/tsdb``),
     ``--ship-url`` (off-host shipping with a disk spool), ``--attrib``
     (``/debug/attrib``), ``--incident-dir`` (``/debug/incidents``).
+    ``--session`` serves pose-in / frame-out streams at ``POST /session``;
+    a ``--tiled`` service runs the scene-asset tier (``/scenes``,
+    ``/scene/{id}/manifest|asset|viewer``) and, with ``--asset-sync-from``,
+    follows a peer's scenes by tile diff.
+  * ``train-queue`` — drain a durable training job queue (train/queue.py)
+    through supervised ``train --device <device>`` children
+    (train/supervisor.py): wedge detection, budgeted retries, poison-job
+    quarantine, SIGTERM preemption, and ``--publish`` of each finished
+    checkpoint into a ``serve --reload-ckpt-s`` watch store.
   * ``ship-sink`` — the telemetry collector a ``serve --ship-url`` posts
     to: each delivered batch lands as one JSON file in ``--dir``.
 
@@ -461,10 +470,13 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       raise SystemExit(
           f"--max-inflight must be an integer or 'auto', "
           f"got {args.max_inflight!r}") from None
-  if not args.tiled and args.tile_size is not None:
-    # The tile size only acts through the tiled registry; silently serving
-    # monolithic scenes would drop the frustum culling asked for.
-    raise SystemExit("--tile-size require(s) --tiled")
+  # Tile and asset knobs only act through the tiled registry; silently
+  # serving monolithic scenes would drop the frustum culling, and the whole
+  # asset delivery tier, asked for.
+  _require(args, "--tiled", args.tiled,
+           [("--tile-size", args.tile_size is not None),
+            ("--asset-cache-mb", args.asset_cache_mb is not None),
+            ("--asset-sync-from", bool(args.asset_sync_from))])
   tile_size: int | str | None = None
   if args.tile_size is not None:
     if args.tile_size == "auto":
@@ -478,6 +490,39 @@ def cmd_serve(args: argparse.Namespace) -> dict:
             f"got {args.tile_size!r}") from None
       if tile_size < 8:
         raise SystemExit(f"--tile-size must be >= 8, got {tile_size}")
+  if args.asset_cache_mb is not None and args.asset_cache_mb < 1:
+    raise SystemExit(
+        f"--asset-cache-mb must be >= 1, got {args.asset_cache_mb}")
+  # The interval only paces the sync watcher.
+  _require(args, "--asset-sync-from", bool(args.asset_sync_from),
+           [("--asset-sync-interval-s",
+             args.asset_sync_interval_s is not None)])
+  if args.asset_sync_interval_s is not None \
+      and args.asset_sync_interval_s <= 0:
+    raise SystemExit(f"--asset-sync-interval-s must be > 0, "
+                     f"got {args.asset_sync_interval_s}")
+  # Session knobs only act through the SessionManager.
+  _require(args, "--session", args.session,
+           [("--session-max", args.session_max is not None),
+            ("--session-idle-s", args.session_idle_s is not None),
+            ("--session-fuse", args.session_fuse is not None),
+            ("--session-prefetch", args.session_prefetch is not None)])
+  session = None
+  if args.session:
+    from mpi_vision_tpu_torch.serve.session import SessionConfig
+
+    # Unset knobs are not passed: the dataclass defaults stay the single
+    # source of truth.
+    sess_kwargs = {name: value for name, value in (
+        ("max_sessions", args.session_max),
+        ("idle_timeout_s", args.session_idle_s),
+        ("fuse_max", args.session_fuse),
+        ("prefetch_horizon", args.session_prefetch)) if value is not None}
+    try:
+      session = SessionConfig(**sess_kwargs)
+    except ValueError as e:
+      # SessionConfig's own validation speaks in flag terms already.
+      raise SystemExit(f"bad session config: {e}") from None
   convention = Convention.EXACT if args.convention == "exact" else None
   degraded = _degraded_mode_kwargs(args)
   try:
@@ -489,8 +534,10 @@ def cmd_serve(args: argparse.Namespace) -> dict:
                 else "pallas"),
         tile=((tile_size if tile_size is not None else 64)
               if args.tiled else None),
+        asset_cache_bytes=(args.asset_cache_mb
+                           if args.asset_cache_mb is not None else 256) << 20,
         convention=convention, device=args.device, max_queue=args.max_queue,
-        **degraded)
+        session=session, **degraded)
   except ValueError as e:  # a method that cannot render crops/targets
     raise SystemExit(str(e)) from None
   if args.mpi_dir:
@@ -546,12 +593,30 @@ def cmd_serve(args: argparse.Namespace) -> dict:
           initial_step=ckpt_info["step"], log=_log).start()
       _log(f"serve: watching {args.ckpt} for new checkpoints every "
            f"{args.reload_ckpt_s:g}s")
-  if not args.mpi_dir and not args.ckpt:
+  if not args.mpi_dir and not args.ckpt and not args.asset_sync_from:
     ids = svc.add_synthetic_scenes(
         args.scenes, height=args.img_size, width=args.img_size,
         planes=args.num_planes)
     _log(f"serve: {len(ids)} synthetic scenes "
          f"[{args.img_size}x{args.img_size}x{args.num_planes}]")
+  sync_watcher = None
+  if args.asset_sync_from:
+    # Tile-diff scene sync (serve/assets): follow a peer backend, pulling
+    # only changed-digest tiles each sweep. The first sweep runs on the
+    # watcher thread, so a peer that is still coming up delays nothing;
+    # failures are counted and retried.
+    from mpi_vision_tpu_torch.serve.assets import (
+        SceneFetcher,
+        SceneSyncWatcher,
+    )
+
+    sync_watcher = SceneSyncWatcher(
+        SceneFetcher(svc, args.asset_sync_from, events=svc.events),
+        poll_s=(args.asset_sync_interval_s
+                if args.asset_sync_interval_s is not None else 5.0),
+        log=_log).start()
+    _log(f"serve: tile-diff syncing scenes from {args.asset_sync_from} "
+         f"every {sync_watcher.poll_s:g}s")
   _log(f"serve: {len(svc.scene_ids())} scene(s) on {svc.engine.device}, "
        f"method {svc.engine.method}, tile {svc.tile}")
   if args.warmup:
@@ -591,7 +656,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   _log(f"serve: listening on http://{args.host}:{port} "
        f"(/render, /healthz, /stats, /metrics, /debug/traces, "
        f"/debug/events, /debug/profile, /debug/tsdb, /debug/attrib, "
-       f"/debug/incidents); "
+       f"/debug/incidents, /scenes, /scene/{{id}}/manifest|asset|viewer"
+       f"{', POST /session' if svc.sessions is not None else ''}); "
        f"engine {svc.engine.describe()}")
 
   t0 = time.time()
@@ -600,6 +666,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   finally:
     if watcher is not None:
       watcher.stop()  # no reload may start while the service drains
+    if sync_watcher is not None:
+      sync_watcher.stop()
     httpd.shutdown()  # stop accepting; in-flight handler threads finish
     httpd.server_close()
     stats = svc.stats()
@@ -634,10 +702,225 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       **({"brownout": stats["brownout"]} if svc.brownout is not None
          else {}),
       **({"ckpt_reload": watcher.snapshot()} if watcher is not None else {}),
+      **({"scene_sync": sync_watcher.snapshot()}
+         if sync_watcher is not None else {}),
+      **({"session": stats["session"]} if svc.sessions is not None else {}),
       **({"ship": stats["ship"]} if "ship" in stats else {}),
       **({"incidents": stats["incidents"]} if "incidents" in stats
          else {}),
   }
+
+
+def cmd_train_queue(args: argparse.Namespace) -> dict:
+  import signal
+  import threading
+
+  # Every knob is validated at the door: the monitor loop swallows tick
+  # exceptions by design, so a lazily-raised ValueError would leave
+  # supervision silently dead (the cluster subcommand's rule).
+  if args.concurrency < 1:
+    raise SystemExit(f"--concurrency must be >= 1, got {args.concurrency}")
+  if args.probe_s <= 0:
+    raise SystemExit(f"--probe-s must be > 0, got {args.probe_s}")
+  if args.probe_timeout_s <= 0:
+    raise SystemExit(
+        f"--probe-timeout-s must be > 0, got {args.probe_timeout_s}")
+  if args.wedge_after < 1:
+    raise SystemExit(f"--wedge-after must be >= 1, got {args.wedge_after}")
+  if args.restart_budget < 1:
+    raise SystemExit(
+        f"--restart-budget must be >= 1, got {args.restart_budget}")
+  if args.budget_window_s <= 0:
+    raise SystemExit(
+        f"--budget-window-s must be > 0, got {args.budget_window_s}")
+  if args.lease_s <= 0:
+    raise SystemExit(f"--lease-s must be > 0, got {args.lease_s}")
+  if args.startup_grace_s < 0:
+    # A negative grace silently disables the compile headroom and every
+    # healthy trainer's first compile reads as a wedge.
+    raise SystemExit(
+        f"--startup-grace-s must be >= 0, got {args.startup_grace_s}")
+  if args.publish_keep < 1:
+    raise SystemExit(f"--publish-keep must be >= 1, got {args.publish_keep}")
+  if args.metrics_port is not None and args.metrics_port < 0:
+    raise SystemExit(
+        f"--metrics-port must be >= 0 (0 = ephemeral), got "
+        f"{args.metrics_port}")
+  if args.metrics_port_file and args.metrics_port is None:
+    # The port file only acts through the listener; the usual
+    # dangling-flag guard.
+    raise SystemExit("--metrics-port-file requires --metrics-port")
+  if not args.slo:
+    # SLO knobs only act through the tracker; silently dropping the
+    # objectives the operator asked for is the dangling-flag failure
+    # mode this repo guards against everywhere.
+    wants_slo = [flag for flag, on in (
+        ("--slo-availability", args.slo_availability is not None),
+        ("--slo-step-latency-ms",
+         args.slo_step_latency_ms is not None)) if on]
+    if wants_slo:
+      raise SystemExit(
+          f"{', '.join(wants_slo)} require(s) SLO tracking (drop --no-slo)")
+  specs = []
+  for raw in args.submit:
+    try:
+      spec = json.loads(raw)
+    except ValueError as e:
+      raise SystemExit(f"--submit is not valid JSON ({e}): {raw!r}")
+    if not isinstance(spec, dict):
+      raise SystemExit(f"--submit must be a JSON object, got {raw!r}")
+    specs.append(spec)
+
+  from mpi_vision_tpu_torch.obs import events as events_mod
+  from mpi_vision_tpu_torch.train.queue import JobQueue
+  from mpi_vision_tpu_torch.train.supervisor import (
+      SubprocessLauncher,
+      TrainSupervisor,
+  )
+
+  events = events_mod.EventLog(
+      sink=events_mod.file_sink(args.event_log) if args.event_log else None)
+  queue = JobQueue(os.path.abspath(args.root), lease_s=args.lease_s,
+                   events=events)
+  from mpi_vision_tpu_torch.train.queue import JobQueueError
+
+  for spec in specs:
+    try:
+      job_id = queue.submit(spec, job_id=spec.pop("id", None))
+    except (ValueError, JobQueueError) as e:
+      # Same validate-at-the-door contract as every other knob: a bad
+      # or duplicate job id is a clean exit, not a traceback.
+      raise SystemExit(f"--submit rejected: {e}")
+    _log(f"train-queue: submitted {job_id}")
+
+  publish_store = None
+  if args.publish:
+    from mpi_vision_tpu_torch.ckpt import CheckpointStore
+
+    publish_store = CheckpointStore(os.path.abspath(args.publish),
+                                    keep=args.publish_keep, events=events)
+  slo = None
+  if args.slo:
+    from mpi_vision_tpu_torch.obs import SloConfig
+    from mpi_vision_tpu_torch.obs.slo import SloTracker
+
+    try:
+      slo = SloTracker(SloConfig(
+          availability_target=(args.slo_availability
+                               if args.slo_availability is not None
+                               else 0.99),
+          latency_threshold_s=(args.slo_step_latency_ms
+                               if args.slo_step_latency_ms is not None
+                               else 60000.0) / 1e3))
+    except ValueError as e:
+      # Same validate-at-the-door contract as every other knob.
+      raise SystemExit(f"bad SLO knob: {e}")
+
+  # Children train on --device: the card by default, the CPU only when
+  # asked (a child without a card fails; it never falls back).
+  supervisor = TrainSupervisor(
+      queue, launcher=SubprocessLauncher(
+          args.work or os.path.join(args.root, "work"), log=_log,
+          device=args.device),
+      publish_store=publish_store, concurrency=args.concurrency,
+      probe_s=args.probe_s, probe_timeout_s=args.probe_timeout_s,
+      wedge_after=args.wedge_after, startup_grace_s=args.startup_grace_s,
+      restart_budget=args.restart_budget,
+      budget_window_s=args.budget_window_s, slo=slo, events=events,
+      log=_log)
+  _log(f"train-queue: supervising {args.root} on {args.device} (concurrency "
+       f"{args.concurrency}, probe every {args.probe_s:g}s, budget "
+       f"{args.restart_budget} retries / {args.budget_window_s:g}s, "
+       f"wedge after {args.wedge_after} stalled probes"
+       + (f"; publishing to {args.publish}" if args.publish else "") + ")")
+
+  metrics_httpd = None
+  metrics_port = None
+  if args.metrics_port is not None:
+    from mpi_vision_tpu_torch.train.supervisor import make_queue_metrics_server
+
+    # The queue's own scrape surface (the serve endpoints an operator
+    # already knows): /metrics renders the mpi_train_queue_* registry,
+    # /stats the snapshot, /healthz the drain/quarantine headline.
+    metrics_httpd = make_queue_metrics_server(
+        supervisor, events=events, host="127.0.0.1", port=args.metrics_port)
+    metrics_port = metrics_httpd.server_address[1]
+    if args.metrics_port_file:
+      _write_port_file(args.metrics_port_file, metrics_port)
+    threading.Thread(target=metrics_httpd.serve_forever,
+                     name="train-queue-metrics", daemon=True).start()
+    _log(f"train-queue: metrics on http://127.0.0.1:{metrics_port} "
+         "(/metrics /stats /healthz /debug/events)")
+
+  stop_event = threading.Event()
+
+  def _on_signal(signum, frame):  # noqa: ARG001 - stdlib signature
+    stop_event.set()
+    try:
+      _log(f"train-queue: received {signal.Signals(signum).name}; "
+           "preempting running jobs")
+    except Exception:  # noqa: BLE001 - e.g. reentrant stderr write
+      pass
+
+  previous_handlers = {}
+  for sig in (signal.SIGTERM, signal.SIGINT):
+    try:
+      previous_handlers[sig] = signal.signal(sig, _on_signal)
+    except (ValueError, OSError):
+      pass
+
+  t0 = time.time()
+  drained = None
+  try:
+    if args.drain:
+      # should_stop keeps a draining run interruptible: SIGTERM/SIGINT
+      # land in the next tick cycle instead of being swallowed until
+      # the drain finishes or times out.
+      drained = supervisor.run_until_drained(
+          timeout_s=args.duration if args.duration > 0 else 600.0,
+          should_stop=stop_event.is_set)
+    else:
+      supervisor.start()
+      stop_event.wait(args.duration if args.duration > 0 else None)
+  finally:
+    # SIGTERM semantics end to end: running jobs are SIGTERM'd (the
+    # train CLI saves a preempt checkpoint) and requeued with no budget
+    # spent, so the next supervisor resumes them bit-exactly.
+    supervisor.stop(preempt=True)
+    if metrics_httpd is not None:
+      metrics_httpd.shutdown()
+      metrics_httpd.server_close()
+    for sig, handler in previous_handlers.items():
+      signal.signal(sig, handler)
+    _log("train-queue: stopped; running jobs preempted back to the queue")
+
+  snap = supervisor.snapshot()
+  out = {
+      "command": "train-queue",
+      "root": queue.root,
+      "device": args.device,
+      "seconds": round(time.time() - t0, 1),
+      "jobs": snap["queue"]["counts"],
+      "spawns": snap["spawns"],
+      "completes": snap["completes"],
+      "failures": snap["failures"],
+      "wedges": snap["wedges"],
+      "requeues": snap["requeues"],
+      "quarantines": snap["quarantines"],
+      "preemptions": snap["preemptions"],
+      "publishes": snap["publishes"],
+      "publish_errors": snap["publish_errors"],
+      "spec_rejects": snap["spec_rejects"],
+      "events_emitted": events.emitted,
+      **({"metrics_port": metrics_port} if metrics_port is not None
+         else {}),
+      **({"drained": drained} if drained is not None else {}),
+  }
+  if slo is not None:
+    from mpi_vision_tpu_torch.obs.slo import verdict
+
+    out["slo"] = verdict(slo.snapshot())
+  return out
 
 
 def cmd_ship_sink(args: argparse.Namespace) -> dict:
@@ -1072,6 +1355,19 @@ def build_parser() -> argparse.ArgumentParser:
                  help="tile edge in pixels (default 64), or 'auto' to "
                       "derive a per-scene edge targeting ~64 tiles "
                       "(serve/tiles.py auto_tile); requires --tiled")
+  s.add_argument("--asset-cache-mb", type=int, default=None,
+                 help="scene-asset LRU byte budget for the "
+                      "/scene/{id}/asset/{digest} delivery tier "
+                      "(default 256); requires --tiled")
+  s.add_argument("--asset-sync-from", default="",
+                 help="base URL of a peer backend to tile-diff sync "
+                      "scenes FROM (serve/assets SceneFetcher): fetch each "
+                      "remote manifest, pull only changed-digest tiles, "
+                      "publish locally under the same ids; requires "
+                      "--tiled")
+  s.add_argument("--asset-sync-interval-s", type=float, default=None,
+                 help="re-sync --asset-sync-from every this many seconds "
+                      "(default 5); requires --asset-sync-from")
   s.add_argument("--convention", default="ref", choices=("ref", "exact"),
                  help="sampling convention: 'ref' reproduces the "
                       "reference exactly (its axis swap is benign on "
@@ -1209,6 +1505,28 @@ def build_parser() -> argparse.ArgumentParser:
                       "(default 3.0)")
   s.add_argument("--brownout-max-level", type=int, default=None,
                  help="ladder ceiling 1-4 (default 4)")
+  s.add_argument("--session", action=argparse.BooleanOptionalAction,
+                 default=False,
+                 help="pose-in/frame-out streaming sessions at POST "
+                      "/session: one long-lived exchange per client, "
+                      "queued poses fused into one device flight, and a "
+                      "trajectory predictor issuing speculative "
+                      "X-Request-Class: prefetch renders into the edge "
+                      "cache (serve/session/)")
+  s.add_argument("--session-max", type=int, default=None,
+                 help="concurrent session bound — opens past it get 503 "
+                      "+ Retry-After (default 8); requires --session")
+  s.add_argument("--session-idle-s", type=float, default=None,
+                 help="seconds without a pose before a session is "
+                      "reaped (default 30); requires --session")
+  s.add_argument("--session-fuse", type=int, default=None,
+                 help="max queued poses drained into one fused device "
+                      "flight (default 4); requires --session")
+  s.add_argument("--session-prefetch", type=int, default=None,
+                 help="predicted poses probed ahead per flush for "
+                      "speculative edge-cache warming; 0 disables the "
+                      "predictor (default 3); acts only with "
+                      "--edge-cache; requires --session")
   s.add_argument("--tsdb-interval-s", type=float, default=0.0,
                  help="sample every /metrics family into the on-box "
                       "time-series ring this often and serve windowed "
@@ -1284,6 +1602,91 @@ def build_parser() -> argparse.ArgumentParser:
                  help="memoize the /metrics exposition string this long "
                       "(<= 0 renders per scrape)")
   s.set_defaults(fn=cmd_serve, method_given=False)
+
+  q = sub.add_parser(
+      "train-queue",
+      help="drain a durable training job queue under supervision "
+           "(train/queue.py + train/supervisor.py): crash-safe multi-job "
+           "ingest with wedge detection, budgeted retries, poison-job "
+           "quarantine, SIGTERM preemption requeue, and live scene "
+           "publish into a serve --reload-ckpt-s watch store")
+  q.add_argument("--root", required=True,
+                 help="queue directory (atomic JSON job specs; shared "
+                      "by every worker draining this queue)")
+  q.add_argument("--work", default="",
+                 help="per-job isolation root (ckpt/, logs, metrics "
+                      "port files; default <root>/work)")
+  q.add_argument("--submit", action="append", default=[], metavar="JSON",
+                 help="enqueue one job spec before supervising "
+                      "(repeatable); a JSON object, optionally with an "
+                      "'id' key (e.g. '{\"epochs\": 1, \"img_size\": 32, "
+                      "\"num_planes\": 4, \"seed\": 7}')")
+  q.add_argument("--publish", default="",
+                 help="republish each completed job's checkpoint into "
+                      "this store (byte-identical arrays, next step "
+                      "number) — point a serve --ckpt ... "
+                      "--reload-ckpt-s backend at it and new scenes go "
+                      "live with zero dropped requests")
+  q.add_argument("--publish-keep", type=int, default=8,
+                 help="published checkpoints retained by GC")
+  q.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                 help="device every child trains on (train --device); "
+                      "cuda fails without a card rather than falling "
+                      "back to the CPU")
+  q.add_argument("--concurrency", type=int, default=1,
+                 help="training attempts in flight at once")
+  q.add_argument("--probe-s", type=float, default=1.0,
+                 help="supervision tick / health-probe period")
+  q.add_argument("--probe-timeout-s", type=float, default=2.0,
+                 help="per-probe /healthz budget")
+  q.add_argument("--wedge-after", type=int, default=6,
+                 help="consecutive probes without step-counter progress "
+                      "that declare a live trainer wedged (SIGKILL + "
+                      "requeue)")
+  q.add_argument("--startup-grace-s", type=float, default=120.0,
+                 help="spawn-time grace before wedge counting starts "
+                      "(headroom for each child's import, CUDA start-up "
+                      "and first kernel build)")
+  q.add_argument("--restart-budget", type=int, default=3,
+                 help="per-job retries allowed inside --budget-window-s "
+                      "before the job is quarantined as poison "
+                      "(crash-loop containment; the queue keeps "
+                      "draining)")
+  q.add_argument("--budget-window-s", type=float, default=300.0,
+                 help="the restart-budget window")
+  q.add_argument("--lease-s", type=float, default=60.0,
+                 help="heartbeat staleness after which a dead worker's "
+                      "leased job is requeued (never lost)")
+  q.add_argument("--drain", action="store_true",
+                 help="exit once every job is terminal (done / failed / "
+                      "quarantined) instead of supervising forever")
+  q.add_argument("--duration", type=float, default=0.0,
+                 help="seconds to run (drain timeout with --drain); "
+                      "<= 0 runs until interrupted (600s drain default)")
+  q.add_argument("--event-log", default="",
+                 help="append one JSON line per queue lifecycle event "
+                      "(submitted/leased/started/done/requeued/wedged/"
+                      "quarantined/published) to this file")
+  q.add_argument("--metrics-port", type=int, default=None,
+                 help="expose the supervisor's mpi_train_queue_* "
+                      "registry on this localhost port (/metrics, "
+                      "/stats, /healthz, /debug/events; 0 = ephemeral "
+                      "— see --metrics-port-file)")
+  q.add_argument("--metrics-port-file", default="",
+                 help="write the bound metrics port here (atomic "
+                      "rename); requires --metrics-port")
+  q.add_argument("--slo", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="track training-queue SLOs in the obs/slo.py "
+                      "engine: job-attempt success availability + "
+                      "observed step-latency objectives")
+  q.add_argument("--slo-availability", type=float, default=None,
+                 help="attempt-success objective (default 0.99); "
+                      "requires SLO tracking")
+  q.add_argument("--slo-step-latency-ms", type=float, default=None,
+                 help="step-latency objective threshold (default 60000); "
+                      "requires SLO tracking")
+  q.set_defaults(fn=cmd_train_queue)
 
   k = sub.add_parser(
       "ship-sink",

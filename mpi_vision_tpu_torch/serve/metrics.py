@@ -136,6 +136,39 @@ class ServeMetrics:
       self.brownout_sheds = {cls: 0 for cls in
                              ("interactive", "prefetch", "background")}
       self.brownout_degraded = {lvl: 0 for lvl in (1, 2, 3, 4)}
+      # Asset-tier accounting (serve/assets/): manifest/asset request
+      # outcomes on the serving side, tile-diff sync outcomes on the
+      # fetching side. Always present in the snapshot (zeros while the
+      # tier is off) so the mpi_serve_asset_* / mpi_serve_scene_sync_*
+      # families are always exposed.
+      self.asset_manifest_requests = 0
+      self.asset_requests = 0
+      self.asset_not_found = 0
+      self.asset_not_modified = 0
+      self.asset_bytes_served = 0
+      self.asset_encodes = 0
+      self.asset_publish_rejects = 0
+      self.scene_sync_runs = 0
+      self.scene_sync_tiles_fetched = 0
+      self.scene_sync_tiles_reused = 0
+      self.scene_sync_bytes = 0
+      self.scene_sync_failures = 0
+      self.scene_sync_retries = 0
+      # Session-tier accounting (serve/session/): open/close/shed
+      # lifecycle, fused-flush shape, and the trajectory prefetcher's
+      # outcomes. Always present in the snapshot (zeros while sessions
+      # are off) so the mpi_serve_session_* families are always exposed.
+      self.session_opens = 0
+      self.session_closes = 0
+      self.session_rejects = 0
+      self.session_idle_reaps = 0
+      self.session_frames = 0
+      self.session_frame_errors = 0
+      self.session_flushes = 0
+      self.session_flush_poses = 0
+      self.session_prefetch_issued = 0
+      self.session_prefetch_hits = 0
+      self.session_prefetch_suppressed = 0
       # Edge warp serves' pose error (serve/edge/): how far the served
       # frame's render pose was from the request.
       self._hist_warp_pose_error = {
@@ -266,6 +299,101 @@ class ServeMetrics:
     """One response served below full quality at ladder ``level``."""
     with self._lock:
       self.brownout_degraded[min(max(int(level), 1), 4)] += 1
+
+  def record_asset_request(self, kind: str, outcome: str,
+                           nbytes: int = 0) -> None:
+    """One asset-tier GET: ``kind`` is "manifest" or "asset"; ``outcome``
+    is "ok" / "not_modified" (304 revalidation) / "not_found"; ``nbytes``
+    the body bytes actually sent (0 for 304s and 404s)."""
+    with self._lock:
+      if kind == "manifest":
+        self.asset_manifest_requests += 1
+      else:
+        self.asset_requests += 1
+      if outcome == "not_modified":
+        self.asset_not_modified += 1
+      elif outcome == "not_found":
+        self.asset_not_found += 1
+      self.asset_bytes_served += int(nbytes)
+
+  def record_asset_encode(self) -> None:
+    """One asset (re-)encoded from live scene data (publish or LRU
+    miss) — the cost content addressing amortizes away."""
+    with self._lock:
+      self.asset_encodes += 1
+
+  def record_asset_publish_reject(self) -> None:
+    """One corrupt bake refused at the digest-vs-bytes gate."""
+    with self._lock:
+      self.asset_publish_rejects += 1
+
+  def record_scene_sync(self, tiles_fetched: int, tiles_reused: int,
+                        bytes_fetched: int) -> None:
+    """One completed tile-diff scene sync pulled INTO this service."""
+    with self._lock:
+      self.scene_sync_runs += 1
+      self.scene_sync_tiles_fetched += int(tiles_fetched)
+      self.scene_sync_tiles_reused += int(tiles_reused)
+      self.scene_sync_bytes += int(bytes_fetched)
+
+  def record_scene_sync_failure(self) -> None:
+    with self._lock:
+      self.scene_sync_failures += 1
+
+  def record_scene_sync_retry(self) -> None:
+    """One transient per-fetch failure retried (with backoff) inside a
+    scene sync instead of failing the whole sweep."""
+    with self._lock:
+      self.scene_sync_retries += 1
+
+  def record_session_open(self) -> None:
+    """One streaming session admitted (POST /session accepted)."""
+    with self._lock:
+      self.session_opens += 1
+
+  def record_session_close(self, idle: bool = False) -> None:
+    """One session ended; ``idle`` marks reaper-driven closes."""
+    with self._lock:
+      self.session_closes += 1
+      if idle:
+        self.session_idle_reaps += 1
+
+  def record_session_reject(self) -> None:
+    """One session open shed at the bound (503 + Retry-After)."""
+    with self._lock:
+      self.session_rejects += 1
+
+  def record_session_flush(self, poses: int) -> None:
+    """One fused drain of a session's queue: ``poses`` submitted
+    concurrently so the scheduler can coalesce them into one flight."""
+    with self._lock:
+      self.session_flushes += 1
+      self.session_flush_poses += int(poses)
+
+  def record_session_frame(self) -> None:
+    """One frame streamed to a session client."""
+    with self._lock:
+      self.session_frames += 1
+
+  def record_session_frame_error(self) -> None:
+    """One session frame failed (shed/timeout/queue-full error frame)."""
+    with self._lock:
+      self.session_frame_errors += 1
+
+  def record_session_prefetch_issued(self) -> None:
+    """One speculative prefetch-class render issued for a predicted cell."""
+    with self._lock:
+      self.session_prefetch_issued += 1
+
+  def record_session_prefetch_hit(self) -> None:
+    """One real session frame served from a cell prefetch warmed."""
+    with self._lock:
+      self.session_prefetch_hits += 1
+
+  def record_session_prefetch_suppressed(self) -> None:
+    """One prefetch round skipped at brownout L3+ (predictor muted)."""
+    with self._lock:
+      self.session_prefetch_suppressed += 1
 
   def record_warp_pose_error(self, trans: float, rot_deg: float,
                              trace_id: str | None = None) -> None:
@@ -436,6 +564,45 @@ class ServeMetrics:
               "warp_pose_error": {
                   comp: h.snapshot()
                   for comp, h in self._hist_warp_pose_error.items()},
+          },
+          "assets": {
+              "manifest_requests": self.asset_manifest_requests,
+              "requests": self.asset_requests,
+              "not_found": self.asset_not_found,
+              "not_modified": self.asset_not_modified,
+              "bytes_served": self.asset_bytes_served,
+              "encodes": self.asset_encodes,
+              "publish_rejects": self.asset_publish_rejects,
+          },
+          "scene_sync": {
+              "runs": self.scene_sync_runs,
+              "tiles_fetched": self.scene_sync_tiles_fetched,
+              "tiles_reused": self.scene_sync_tiles_reused,
+              "bytes_fetched": self.scene_sync_bytes,
+              "failures": self.scene_sync_failures,
+              "retries": self.scene_sync_retries,
+          },
+          # Session tier (serve/session/): counters here, live state
+          # ("enabled"/"active" and the knobs) overlaid by the service's
+          # stats() when a SessionManager is attached.
+          "session": {
+              "enabled": False,
+              "active": 0,
+              "opened": self.session_opens,
+              "closed": self.session_closes,
+              "rejected": self.session_rejects,
+              "idle_reaped": self.session_idle_reaps,
+              "frames": self.session_frames,
+              "frame_errors": self.session_frame_errors,
+              "flushes": self.session_flushes,
+              "mean_flush_size": (
+                  round(self.session_flush_poses / self.session_flushes, 3)
+                  if self.session_flushes else None),
+              "prefetch": {
+                  "issued": self.session_prefetch_issued,
+                  "hits": self.session_prefetch_hits,
+                  "suppressed": self.session_prefetch_suppressed,
+              },
           },
           # The service overlays controller state (level, transitions,
           # signals) when brownout is on; the counters live here so a

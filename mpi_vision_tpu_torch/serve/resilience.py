@@ -131,6 +131,103 @@ class RetryPolicy:
     return max(base * (1.0 + self.jitter * rng.uniform(-1.0, 1.0)), 0.0)
 
 
+class RestartBudget:
+  """Sliding-window restart allowance — the crash-loop containment guard.
+
+  A supervisor that restarts a dead process unconditionally turns a
+  crash-looping job into an infinite flap: each respawn starts, crashes,
+  and is respawned again, burning the card and paging nobody
+  (``train/supervisor.py`` spends one per failed training attempt). This
+  budget bounds the loop: at most ``max_restarts``
+  ``try_spend()`` calls may succeed inside any trailing ``window_s``;
+  once exceeded, ``try_spend()`` returns False and the caller quarantines
+  the job instead of respawning it. A job that runs longer than
+  the window between crashes earns its budget back (timestamps age out),
+  so an occasional crash never accumulates into a quarantine.
+
+  Thread-safe; the clock is injectable.
+  """
+
+  def __init__(self, max_restarts: int = 3, window_s: float = 60.0,
+               clock=time.monotonic):
+    if max_restarts < 1:
+      raise ValueError(f"max_restarts must be >= 1, got {max_restarts}")
+    if window_s <= 0:
+      raise ValueError(f"window_s must be > 0, got {window_s}")
+    self.max_restarts = int(max_restarts)
+    self.window_s = float(window_s)
+    self._clock = clock
+    self._lock = threading.Lock()
+    self._spends: list[float] = []
+    self.spent = 0
+    self.refused = 0
+
+  def _prune_locked(self, now: float) -> None:
+    floor = now - self.window_s
+    while self._spends and self._spends[0] <= floor:
+      self._spends.pop(0)
+
+  def try_spend(self) -> bool:
+    """Claim one restart; False means the budget is exhausted."""
+    with self._lock:
+      now = self._clock()
+      self._prune_locked(now)
+      if len(self._spends) >= self.max_restarts:
+        self.refused += 1
+        return False
+      self._spends.append(now)
+      self.spent += 1
+      return True
+
+  def remaining(self) -> int:
+    with self._lock:
+      self._prune_locked(self._clock())
+      return self.max_restarts - len(self._spends)
+
+  def reset(self) -> None:
+    """Forget the window (operator readmit of a quarantined job)."""
+    with self._lock:
+      self._spends.clear()
+
+  def spend_ages(self) -> list[float]:
+    """Ages (seconds ago) of every in-window spend, oldest first.
+
+    Ages are clock-base-free, so they can cross process boundaries — a
+    supervisor taking over mid-crash-loop seeds its own budget from the
+    ages persisted on the job record and the window keeps sliding where
+    it left off.
+    """
+    with self._lock:
+      now = self._clock()
+      self._prune_locked(now)
+      return [max(0.0, now - t) for t in self._spends]
+
+  def seed_ages(self, ages) -> None:
+    """Adopt another budget's in-window spends, given as ages.
+
+    Replaces the local window (takeover adoption, not accumulation);
+    out-of-window ages are dropped, newest ``max_restarts`` kept — the
+    no-budget-reset half of supervision handoff.
+    """
+    with self._lock:
+      now = self._clock()
+      spends = sorted(now - max(0.0, float(a)) for a in ages)
+      self._spends = spends[-self.max_restarts:]
+      self._prune_locked(now)
+
+  def snapshot(self) -> dict:
+    with self._lock:
+      self._prune_locked(self._clock())
+      return {
+          "max_restarts": self.max_restarts,
+          "window_s": self.window_s,
+          "in_window": len(self._spends),
+          "remaining": self.max_restarts - len(self._spends),
+          "spent": self.spent,
+          "refused": self.refused,
+      }
+
+
 class CircuitBreaker:
   """CLOSED -> OPEN -> HALF_OPEN consecutive-failure circuit breaker.
 

@@ -30,6 +30,23 @@ threaded stdlib ``http.server`` front end:
   GET  /debug/profile?seconds=N -> capture a ``torch.profiler`` trace of
                    live traffic (409 while one is in flight; 503 unless
                    the service was built with a profile dir)
+  GET  /scenes  -> {"scenes": [...]}: the asset tier's discovery endpoint
+                   (what a ``SceneFetcher`` sweeps)
+  GET  /scene/{id}/manifest -> the versioned scene manifest (tile digests,
+                   layer digests, grid, depths, intrinsics), ETag of the
+                   scene digest, ``Cache-Control: no-cache``,
+                   ``If-None-Match`` -> 304 (404 unless tiled)
+  GET  /scene/{id}/asset/{digest} -> immutable content-addressed bytes (a
+                   tile's raw f32 crop, zlib'd, or one plane's PNG), strong
+                   ETag, ``Cache-Control: public, max-age=31536000,
+                   immutable``
+  GET  /scene/{id}/viewer -> the browser viewer, compositing the layer
+                   assets by URL
+  POST /session -> pose-in / frame-out streaming session (503 unless built
+                   with ``session=``): JSON hello body {"scene_id": str}
+                   opens it, then the same socket carries length-prefixed
+                   binary frames, poses in, rendered frames out
+                   (serve/session/); 503 + Retry-After at the session bound
   POST /render  -> body {"scene_id": str, "pose": [[...4x4...]]} ->
                    {"scene_id", "shape", "dtype", "image_b64"} — raw
                    little-endian f32 pixels, base64 (shape [H, W, 3]).
@@ -85,6 +102,7 @@ import hashlib
 import json
 import math
 import re
+import socket
 import threading
 import time
 import urllib.parse
@@ -114,6 +132,7 @@ from mpi_vision_tpu_torch.obs.trace import (
 )
 from mpi_vision_tpu_torch.serve import brownout as brownout_mod
 from mpi_vision_tpu_torch.serve import cache as cache_mod
+from mpi_vision_tpu_torch.serve.assets import store as assets_mod
 from mpi_vision_tpu_torch.serve import tiles as tiles_mod
 from mpi_vision_tpu_torch.serve.edge import (
     EdgeConfig,
@@ -131,6 +150,8 @@ from mpi_vision_tpu_torch.serve.resilience import (
     TransientDeviceError,
 )
 from mpi_vision_tpu_torch.serve.scheduler import MicroBatcher, QueueFullError
+from mpi_vision_tpu_torch.serve.session import manager as session_mod
+from mpi_vision_tpu_torch.serve.session import protocol as session_protocol
 
 
 def synthetic_scene(scene_id: str, height: int = 256, width: int = 256,
@@ -223,7 +244,12 @@ class RenderService:
       into a fixed tile grid: requests render only the frustum-touched
       crop with content-free planes culled (bit-exact to the monolithic
       render when the frustum covers every tile), and the baked cache
-      holds, evicts and invalidates per tile.
+      holds, evicts and invalidates per tile. A tiled service also runs
+      the content-addressed asset tier (``serve/assets/``): every tile's
+      digest is an immutable asset, with a per-scene manifest and viewer.
+    asset_cache_bytes: byte budget of the asset tier's LRU of encoded
+      assets (tiled services only); an evicted asset re-encodes from the
+      registered host arrays on demand.
     convention: coordinate convention for the engine (None keeps the
       engine default, the reference's REF_HOMOGRAPHY). Non-square scenes
       — 1080p included — should pass ``Convention.EXACT``: the reference
@@ -297,6 +323,10 @@ class RenderService:
       the shipper's spool; a pre-built ``IncidentRecorder`` is adopted
       un-started (tests drive ``drain()``); None: 503. Requires SLO
       tracking.
+    session: the streaming-session tier (``serve/session/``): a
+      ``SessionConfig`` serves ``POST /session`` (bounded registry, fused
+      drains through ``render_request``, edge-cache prefetch along the
+      predicted camera path, idle reaping on ``clock``); None: 503.
     metrics_ttl_s: ``/metrics`` exposition-string cache TTL
       (``obs.prom.ExpositionCache``); <= 0 renders fresh every scrape.
     clock: injectable monotonic clock for the scheduler's deadlines, the
@@ -308,6 +338,7 @@ class RenderService:
                max_wait_ms: float = 2.0, max_inflight: "int | str" = 4,
                max_inflight_cap: int = 16, method: str | None = None,
                tile: "int | str | None" = None,
+               asset_cache_bytes: int = 256 << 20,
                convention: "Convention | None" = None, device="cuda",
                max_queue: int = 1024, engine: RenderEngine | None = None,
                resilience: ResilienceConfig | None = ResilienceConfig(),
@@ -322,6 +353,7 @@ class RenderService:
                ship: "ship_mod.ShipConfig | ship_mod.TelemetryShipper | None" = None,
                attrib: "attrib_mod.AttribConfig | attrib_mod.AttribLedger | None" = None,
                incidents: "incident_mod.IncidentConfig | incident_mod.IncidentRecorder | None" = None,
+               session: "session_mod.SessionConfig | None" = None,
                metrics_ttl_s: float = 0.25, clock=time.monotonic):
     if cpu_fallback not in ("auto", "on", "off"):
       raise ValueError(
@@ -471,6 +503,12 @@ class RenderService:
     # budget (total tiled residency <= 1.25x cache_bytes).
     self._crop_memo_budget = max(int(cache_bytes) // 4, 1)
     self._crop_lock = threading.Lock()
+    # Content-addressed asset tier (serve/assets/): rides the tile
+    # digests, so it exists exactly when tiling does. The store holds
+    # ENCODED bytes (zlib tiles, PNG layers) under its own byte budget;
+    # evicted assets re-encode from the registered host arrays on demand.
+    self.assets = (assets_mod.AssetStore(byte_budget=asset_cache_bytes)
+                   if self.tile is not None else None)
     # The edge frame cache (serve/edge/): per-scene generation counters
     # make the params digest change on every add_scene/swap_scenes, so a
     # re-registration orphans every cached cell of the old pixels; the
@@ -519,6 +557,13 @@ class RenderService:
           brownout, burn_fn=self.slo.fast_burn,
           queue_fn=self.scheduler.queue_fraction,
           on_transition=self._on_brownout_transition, clock=clock)
+    # Session tier (serve/session/): built after the brownout controller
+    # because the prefetcher reads its level (L3+ mutes the predictor) and
+    # after the scheduler because session frames ride render_request
+    # straight into it.
+    self.sessions = (None if session is None else
+                     session_mod.SessionManager(session, service=self,
+                                                clock=clock))
     self._metrics_cache = prom.ExpositionCache(
         self._render_metrics_text, ttl_s=metrics_ttl_s, clock=clock)
     # Flight-recorder legs (obs/tsdb.py, obs/ship.py): configs build and
@@ -705,8 +750,10 @@ class RenderService:
       self._purge_crop_memo(sid)
       if self.edge is not None:
         self.edge.invalidate_scene(sid)
-      return [(i, j) for i in range(meta.grid.rows)
-              for j in range(meta.grid.cols)]
+      changed = [(i, j) for i in range(meta.grid.rows)
+                 for j in range(meta.grid.cols)]
+      self._publish_assets(sid, meta, changed)
+      return changed
     changed = old.changed_tiles(meta)
     all_changed = len(changed) == len(meta.grid) or old.grid != meta.grid
     for c in tile_caches:
@@ -725,7 +772,29 @@ class RenderService:
           self.edge.invalidate_scene(sid)
         else:
           self.edge.invalidate_tiles(sid, changed)
+    self._publish_assets(sid, meta, changed)
     return changed
+
+  def _publish_assets(self, sid: str, meta, changed) -> None:
+    """Register the new generation's tile digests with the asset store
+    and announce the manifest. Unchanged tiles keep their digests, so
+    their asset URLs and ETags survive the publish byte-identical — the
+    asset-tier mirror of the tile-granular cache invalidation above."""
+    if self.assets is None:
+      return
+    grid = meta.grid
+    planes = int(meta.depths.shape[0])
+    index = {}
+    for i in range(grid.rows):
+      for j in range(grid.cols):
+        y0, y1, x0, x1 = grid.rect(i, j)
+        index[meta.digests[i][j]] = {
+            "kind": "tile", "scene_id": sid, "row": i, "col": j,
+            "shape": (y1 - y0, x1 - x0, planes, 4)}
+    self.assets.publish_scene(sid, index)
+    self.events.emit("manifest_publish", scene_id=sid,
+                     scene_digest=meta.scene_digest, tiles=len(grid),
+                     tiles_changed=len(changed))
 
   def swap_scenes(self, scenes: dict, prebake: bool = False) -> list[str]:
     """Atomically publish new host data for ``scenes`` (live checkpoint
@@ -811,9 +880,152 @@ class RenderService:
 
   def tile_meta(self, scene_id: str):
     """The current ``TileMeta`` of a tiled scene (None if unknown or the
-    service is untiled)."""
+    service is untiled) — the ``SceneFetcher`` diff's local side."""
     with self._scene_lock:
       return self._tile_meta.get(str(scene_id))
+
+  def scene_entry(self, scene_id: str):
+    """The registered host arrays ``(rgba, depths, intrinsics)`` of a
+    scene, or None. Shared read-only by convention — callers that mutate
+    must copy."""
+    with self._scene_lock:
+      return self._scene_data.get(str(scene_id))
+
+  # -- content-addressed asset tier (serve/assets/) -----------------------
+  # Digests and encodings come from the registered host arrays, never from
+  # the card: a tile asset is the bytes its ``TileMeta`` digest hashed.
+
+  def _require_assets(self) -> None:
+    if self.assets is None:
+      raise RuntimeError(
+          "the asset tier rides the tile digests: construct "
+          "RenderService with tile= (serve --tiled)")
+
+  def scene_manifest(self, scene_id: str) -> dict:
+    """The versioned scene manifest (``GET /scene/{id}/manifest``).
+
+    Built lazily per generation and cached by scene digest; the first
+    build also encodes the per-plane layer PNGs the viewer composites.
+    Raises KeyError for unknown scenes.
+    """
+    self._require_assets()
+    sid = str(scene_id)
+    meta = self.tile_meta(sid)
+    if meta is None:
+      raise KeyError(f"unknown scene {sid!r}")
+    cached = self.assets.manifest(sid, meta.scene_digest)
+    if cached is not None:
+      return cached
+    entry = self.scene_entry(sid)
+    layers = self._publish_layer_assets(sid, entry)
+    manifest = assets_mod.build_manifest(
+        sid, meta, params_digest=f"{self._edge_base}:tiled", layers=layers)
+    # Cache only if this generation is still current (a concurrent swap
+    # may have republished mid-build; the next request rebuilds).
+    if self.tile_meta(sid) is meta:
+      self.assets.cache_manifest(sid, meta.scene_digest, manifest)
+    return manifest
+
+  def _publish_layer_assets(self, sid: str, entry) -> list[str]:
+    """Encode each MPI plane as a PNG asset (the viewer's sources),
+    addressed by the sha256 of the PNG bytes. Returns the digests, index
+    0 farthest (the template's compositing order)."""
+    from mpi_vision_tpu_torch.viewer import export as viewer_export
+
+    rgba = entry[0]
+    digests, index = [], {}
+    for plane in range(rgba.shape[2]):
+      png = viewer_export.layer_to_png_bytes(rgba[:, :, plane])
+      digest = assets_mod.digest_of(png)
+      self.metrics.record_asset_encode()
+      self.assets.put(digest, png, png,
+                      {"kind": "layer",
+                       "content_type": assets_mod.LAYER_CONTENT_TYPE,
+                       "encoding": assets_mod.LAYER_ENCODING})
+      index[digest] = {"kind": "layer", "scene_id": sid, "plane": plane}
+      digests.append(digest)
+    self.assets.register_assets(sid, index)
+    return digests
+
+  def scene_asset(self, scene_id: str, digest: str) -> tuple[bytes, dict]:
+    """Encoded bytes + serving metadata of one content-addressed asset.
+
+    Resident bytes serve straight from the LRU; an evicted-but-live
+    digest re-encodes from scene data (digest-verified — a scene that
+    changed under a stale descriptor can never serve wrong bytes).
+    Raises KeyError when the digest is neither resident nor live: 404.
+    The scene id in the URL only scopes routing; the digest alone names
+    the bytes.
+    """
+    self._require_assets()
+    hit = self.assets.get(digest)
+    if hit is not None:
+      return hit
+    desc = self.assets.source(digest)
+    if desc is None:
+      raise KeyError(f"unknown asset digest {digest[:12]}…")
+    tr = self.tracer.start_trace("asset_encode", scene_id=desc["scene_id"],
+                                 digest=digest[:12])
+    try:
+      out = self._encode_asset(desc, digest)
+    except Exception as e:
+      tr.finish(error=repr(e))
+      raise
+    tr.finish()
+    return out
+
+  def _encode_asset(self, desc: dict, digest: str) -> tuple[bytes, dict]:
+    sid = desc["scene_id"]
+    entry = self.scene_entry(sid)
+    meta = self.tile_meta(sid)
+    if entry is None or meta is None:
+      raise KeyError(f"asset {digest[:12]}… lost its scene {sid!r}")
+    self.metrics.record_asset_encode()
+    if desc["kind"] == "tile":
+      y0, y1, x0, x1 = meta.grid.rect(desc["row"], desc["col"])
+      raw = np.ascontiguousarray(entry[0][y0:y1, x0:x1]).tobytes()
+      encoded = assets_mod.encode_tile(raw)
+      serve_meta = {"kind": "tile",
+                    "content_type": assets_mod.TILE_CONTENT_TYPE,
+                    "encoding": assets_mod.TILE_ENCODING}
+    else:
+      from mpi_vision_tpu_torch.viewer import export as viewer_export
+
+      raw = encoded = viewer_export.layer_to_png_bytes(
+          entry[0][:, :, desc["plane"]])
+      serve_meta = {"kind": "layer",
+                    "content_type": assets_mod.LAYER_CONTENT_TYPE,
+                    "encoding": assets_mod.LAYER_ENCODING}
+    try:
+      self.assets.put(digest, raw, encoded, serve_meta)
+    except assets_mod.AssetIntegrityError:
+      # The scene changed between descriptor registration and this
+      # encode: the digest no longer names producible bytes. Refuse to
+      # serve — wrong bytes under a digest would be cached forever
+      # downstream.
+      self.metrics.record_asset_publish_reject()
+      raise
+    return encoded, serve_meta
+
+  def scene_viewer_html(self, scene_id: str) -> tuple[str, str]:
+    """The browser viewer for one scene, templated against asset URLs (no
+    inlined base64 — layers ride the immutable asset path). Returns
+    ``(html, scene_digest)``; the digest is the ETag token."""
+    from mpi_vision_tpu_torch.viewer import export as viewer_export
+
+    sid = str(scene_id)
+    man = self.scene_manifest(sid)
+    quoted = urllib.parse.quote(sid, safe="")
+    sources = [f"/scene/{quoted}/asset/{d}" for d in man["layers"]]
+    depths = man["depths"]
+    grid = man["grid"]
+    fx = float(man["intrinsics"][0][0])
+    fov_deg = math.degrees(2.0 * math.atan2(grid["width"] / 2.0,
+                                            max(fx, 1e-6)))
+    html = viewer_export.render_viewer_html(
+        sources, grid["width"], grid["height"],
+        near=min(depths), far=max(depths), fov_deg=fov_deg)
+    return html, man["scene_digest"]
 
   def _tile_batch_key(self, scene_id: str, pose,
                       degrade: int = 0) -> tuple[str, dict | None]:
@@ -1511,6 +1723,8 @@ class RenderService:
                                      "bytes": self._crop_memo_bytes,
                                      "byte_budget": self._crop_memo_budget}
       out["tile_cache"] = self._tile_cache.stats()
+    if self.assets is not None:
+      out["assets"]["cache"] = self.assets.stats()
     out["engine"] = self.engine.describe()
     if self.resilient is not None:
       out["breaker"] = self.resilient.breaker.snapshot()
@@ -1523,6 +1737,10 @@ class RenderService:
       # Overlay the controller's live state onto the metrics block (the
       # snapshot's counters stay — they are the shed/degrade history).
       out["brownout"].update(self.brownout.snapshot())
+    if self.sessions is not None:
+      # Same overlay contract as brownout: live state from the manager,
+      # lifecycle and prefetch counters from the metrics snapshot.
+      out["session"].update(self.sessions.snapshot())
     out["events"] = {"emitted": self.events.emitted,
                      "dropped": self.events.dropped,
                      "sink_errors": self.events.sink_errors}
@@ -1622,6 +1840,10 @@ class RenderService:
         self.incidents.stop()
       if self.shipper is not None:
         self.shipper.stop()
+      # Sessions stop before the scheduler: their drain loops submit into
+      # it, and closing them first lets in-flight frames finish.
+      if self.sessions is not None:
+        self.sessions.close_all()
       self.scheduler.stop()
       with self._alert_hook_lock:
         hook_queue = self._alert_hook_queue
@@ -1660,6 +1882,12 @@ def _inbound_trace_id(headers) -> str | None:
   if trace_id == "0" * 32 or parent_id == "0" * 16:
     return None
   return trace_id
+
+
+# Asset-tier routes (serve/assets/): the digest is 64 lowercase sha256
+# hex — anything else is a 404, never a lookup.
+_ASSET_PATH_RE = re.compile(r"^/scene/([^/]+)/asset/([0-9a-f]{64})$")
+_SCENE_PATH_RE = re.compile(r"^/scene/([^/]+)/(manifest|viewer)$")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -1741,8 +1969,78 @@ class _Handler(BaseHTTPRequestHandler):
       self._do_incidents(parsed.query)
     elif parsed.path == "/debug/profile":
       self._do_profile(parsed.query)
+    elif parsed.path == "/scenes":
+      # The asset tier's discovery endpoint: what a SceneFetcher sweeps.
+      self._send_json({"scenes": self.service.scene_ids()})
+    elif parsed.path.startswith("/scene/"):
+      self._do_scene(parsed.path)
     else:
       self._send_json({"error": f"unknown path {self.path}"}, status=404)
+
+  def _if_none_match(self, etag: str) -> bool:
+    header = self.headers.get("If-None-Match", "")
+    return etag in (tok.strip() for tok in header.split(","))
+
+  def _do_scene(self, path: str) -> None:
+    """Asset-tier GETs: ``/scene/{id}/manifest`` (revalidatable JSON),
+    ``/scene/{id}/asset/{digest}`` (immutable content-addressed bytes),
+    ``/scene/{id}/viewer`` (the layer-compositing browser viewer)."""
+    svc = self.service
+    asset = _ASSET_PATH_RE.match(path)
+    scene = _SCENE_PATH_RE.match(path)
+    if (asset is None and scene is None) or svc.assets is None:
+      self._send_json({"error": f"unknown path {self.path}"}, status=404)
+      return
+    if asset is not None:
+      sid = urllib.parse.unquote(asset.group(1))
+      digest = asset.group(2)
+      etag = assets_mod.asset_etag(digest)
+      headers = {"ETag": etag,
+                 "Cache-Control": assets_mod.ASSET_CACHE_CONTROL,
+                 "X-Scene-Id": sid}
+      if self._if_none_match(etag):
+        # Immutable means ANY cached copy is current: revalidations
+        # match on the digest alone, no scene lookup at all.
+        svc.metrics.record_asset_request("asset", "not_modified")
+        self._send_bytes(b"", status=304, extra_headers=headers)
+        return
+      try:
+        body, meta = svc.scene_asset(sid, digest)
+      except (KeyError, assets_mod.AssetIntegrityError):
+        svc.metrics.record_asset_request("asset", "not_found")
+        self._send_json({"error": f"unknown asset {digest[:12]}"},
+                        status=404)
+        return
+      svc.metrics.record_asset_request("asset", "ok", nbytes=len(body))
+      headers["X-Asset-Encoding"] = meta["encoding"]
+      self._send_bytes(body, content_type=meta["content_type"],
+                       extra_headers=headers)
+      return
+    sid = urllib.parse.unquote(scene.group(1))
+    kind = scene.group(2)
+    try:
+      if kind == "manifest":
+        man = svc.scene_manifest(sid)
+        body = svc.assets.manifest_bytes(man)
+        token, ctype = man["scene_digest"], "application/json"
+      else:
+        html, token = svc.scene_viewer_html(sid)
+        body, ctype = html.encode(), "text/html; charset=utf-8"
+    except KeyError:
+      svc.metrics.record_asset_request("manifest", "not_found")
+      self._send_json({"error": f"unknown scene {sid!r}"}, status=404)
+      return
+    etag = assets_mod.manifest_etag(token)
+    # The manifest names the CURRENT generation: always revalidate
+    # (no-cache), always cheap (304 against the scene digest).
+    headers = {"ETag": etag, "Cache-Control": "no-cache",
+               "X-Scene-Id": sid}
+    if self._if_none_match(etag):
+      svc.metrics.record_asset_request("manifest", "not_modified")
+      self._send_bytes(b"", status=304, extra_headers=headers)
+      return
+    svc.metrics.record_asset_request("manifest", "ok", nbytes=len(body))
+    self._send_bytes(body, content_type=ctype, extra_headers=headers)
 
   def _do_tsdb(self, query: str) -> None:
     """``/debug/tsdb?family=&recent=&points=``: windowed history from the
@@ -1822,7 +2120,96 @@ class _Handler(BaseHTTPRequestHandler):
     except RuntimeError as e:  # profiling not configured
       self._send_json({"error": str(e)}, status=503)
 
+  def _do_session(self):
+    """POST /session: one long-lived pose-in / frame-out exchange.
+
+    The JSON hello body rides the normal validation path (same length
+    cap and scene-id rules as /render); after the 200 the socket
+    switches to length-prefixed binary frames (serve/session/protocol).
+    Malformed pose streams close the session cleanly — an in-stream
+    error frame then the end frame, never a 500 and never a dead
+    dispatcher (the fuzz pin).
+    """
+    svc = self.service
+    inbound_tid = _inbound_trace_id(self.headers)
+    tid = inbound_tid or new_trace_id()
+    tid_hdr = {"X-Trace-Id": tid}
+    if svc.sessions is None:
+      self._send_json(
+          {"error": "sessions disabled: construct RenderService with "
+                    "session= (serve --session)"},
+          status=503, extra_headers=tid_hdr)
+      return
+    try:
+      length = int(self.headers.get("Content-Length", "0"))
+      if not 0 <= length <= _MAX_BODY_BYTES:
+        raise ValueError(f"bad body length ({length} bytes)")
+      req = json.loads(self.rfile.read(length) or b"{}")
+      if not isinstance(req, dict):
+        raise ValueError(f"body must be a JSON object, got {type(req).__name__}")
+      scene_id = req["scene_id"]
+      if not isinstance(scene_id, str):
+        raise ValueError(
+            f"scene_id must be a string, got {type(scene_id).__name__}")
+      if any(ord(c) < 0x20 for c in scene_id):
+        raise ValueError("scene_id must not contain control characters")
+    except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
+      self._send_json({"error": f"bad request: {e}"}, status=400,
+                      extra_headers=tid_hdr)
+      return
+    except (BrokenPipeError, ConnectionResetError):
+      svc.metrics.record_client_disconnect()
+      self.close_connection = True
+      return
+    if svc.scene_entry(scene_id) is None:
+      self._send_json({"error": f"unknown scene {scene_id!r}"},
+                      status=404, extra_headers=tid_hdr)
+      return
+    try:
+      h, w = svc._full_hw(scene_id)
+    except KeyError:
+      self._send_json({"error": f"unknown scene {scene_id!r}"},
+                      status=404, extra_headers=tid_hdr)
+      return
+    try:
+      session = svc.sessions.open(
+          scene_id,
+          request_class=self.headers.get(brownout_mod.REQUEST_CLASS_HEADER))
+    except session_mod.SessionLimitError as e:
+      self._send_json(
+          {"error": str(e), "retry_after_s": e.retry_after_s}, status=503,
+          extra_headers={"Retry-After": str(max(1, math.ceil(e.retry_after_s))),
+                         **tid_hdr})
+      return
+    # The exchange owns the socket from here: stream with no
+    # Content-Length, and never reuse the connection afterwards.
+    self.close_connection = True
+    try:
+      # Frames are small and interactive; Nagle + delayed ACK would
+      # stall the stream for tens of milliseconds per exchange.
+      self.connection.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    except OSError:
+      pass
+    try:
+      self.send_response(200)
+      self.send_header("Content-Type", "application/octet-stream")
+      self.send_header("X-Trace-Id", tid)
+      self.send_header("X-Session-Id", session.session_id)
+      self.send_header("Connection", "close")
+      self.end_headers()
+      self.wfile.write(session_protocol.pack_hello(
+          session.session_id, scene_id, (h, w, 3)))
+      self.wfile.flush()
+      session.serve_stream(self.rfile, self.wfile)
+    except (BrokenPipeError, ConnectionResetError):
+      svc.metrics.record_client_disconnect()
+    finally:
+      session.close(session.close_reason)
+
   def do_POST(self):  # noqa: N802 - stdlib name
+    if self.path == "/session":
+      self._do_session()
+      return
     if self.path != "/render":
       self._send_json({"error": f"unknown path {self.path}"}, status=404)
       return

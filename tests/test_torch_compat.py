@@ -7,11 +7,15 @@ tolerances ``tests/test_compat.py`` uses: 0 for the pixel-shuffle ops,
 1e-3 for the render, the sweeps and the warps, 1e-4 for the planar
 transforms, 1e-5 for the small helpers and the crops. Here every call
 passes ``device="cpu"``; on the card the render and the composite launch
-the CUDA kernels (``chip_smoke.py`` phase 13).
+the CUDA kernels (``chip_smoke.py`` phase 13). The JAX side of the array
+functions is jitted (``_jit``): eager JAX compiles each primitive apart,
+which made the sweeps, warps and crops the file's slowest cases.
 """
 
+import functools
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -29,6 +33,13 @@ from mpi_vision_tpu_torch.data import realestate as treal
 from mpi_vision_tpu_torch.kernels import compose_over, render_fused
 
 CPU = {"device": "cpu"}
+
+
+def _jit(fn, static_argnums=(), **static_kwargs):
+  """``fn`` (a JAX compat or core function) jitted, with its shape and
+  flag arguments static."""
+  return jax.jit(functools.partial(fn, **static_kwargs),
+                 static_argnums=static_argnums)
 
 
 def _k(h, w, b=1):
@@ -137,7 +148,8 @@ class TestRenderAndSweep:
     calls = render_fused.plain_render.calls
     got = tc.mpi_render_view_torch(mpi, pose, planes, k, **CPU)
     assert render_fused.plain_render.calls == calls + 1
-    want = jc.mpi_render_view_torch(mpi, pose, planes, k, backend="jax")
+    want = _jit(jc.mpi_render_view_torch, backend="jax")(mpi, pose, planes,
+                                                         k)
     assert got.shape == (2, 24, 24, 3) and got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3,
                                rtol=0)
@@ -158,7 +170,8 @@ class TestRenderAndSweep:
     stack = np.moveaxis(mpi, 3, 0)
     got = tc.projective_forward_homography_torch(stack, k, pose, planes,
                                                  **CPU)
-    want = jc.projective_forward_homography_torch(stack, k, pose, planes)
+    want = _jit(jc.projective_forward_homography_torch)(stack, k, pose,
+                                                        planes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3,
                                rtol=0)
 
@@ -174,7 +187,7 @@ class TestRenderAndSweep:
         ("projective_inverse_warp_torch",
          (img, np.full((1, 24, 24), 3.0, np.float32), pose[None], k[None]))):
       got = getattr(tc, name)(*args, **CPU)
-      want = getattr(jc, name)(*args)
+      want = _jit(getattr(jc, name))(*args)
       assert got.shape == np.asarray(want).shape, name
       np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3,
                                  rtol=0, err_msg=name)
@@ -189,7 +202,7 @@ class TestRenderAndSweep:
     src_poses[1, :, 1, 3] = -0.04
     planes = np.asarray(inv_depths(1.0, 100.0, p), np.float32)
     k = _k(hw, hw)
-    want = np.asarray(jc.format_network_input_torch(
+    want = np.asarray(_jit(jc.format_network_input_torch)(
         ref, srcs, ref_pose, src_poses, planes, k))
     got = tc.format_network_input_torch(ref, srcs, ref_pose, src_poses,
                                         planes, k, **CPU)
@@ -237,22 +250,22 @@ class TestRenderAndSweep:
     ks, kt = _k(hs, ws), _k(ht, wt)
     got = tc.projective_inverse_warp_torch2(img, depth, pose, ks, kt, ht,
                                             wt, **CPU)
-    want = jc.projective_inverse_warp_torch2(img, depth, pose, ks, kt, ht,
-                                             wt)
+    want = _jit(jc.projective_inverse_warp_torch2, (5, 6))(
+        img, depth, pose, ks, kt, ht, wt)
     assert got.shape == (1, ht, wt, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
     wt_, ft = tc.projective_inverse_warp_torch2(
         img, depth, pose, ks, kt, ht, wt, ret_flows=True, **CPU)
-    wj, fj = jc.projective_inverse_warp_torch2(
-        img, depth, pose, ks, kt, ht, wt, ret_flows=True)
+    wj, fj = _jit(jc.projective_inverse_warp_torch2, (5, 6), ret_flows=True)(
+        img, depth, pose, ks, kt, ht, wt)
     np.testing.assert_allclose(wt_.numpy(), np.asarray(wj), atol=1e-3)
     np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=1e-3)
     assert float(ft.abs().max()) > 1.5  # raw pixels, not (0, 1)
     planes = np.asarray(inv_depths(1.0, 20.0, 4))
     st = tc.plane_sweep_torch_one2(img[0], planes, pose[0], ks[0], kt[0],
                                    ht, wt, **CPU)
-    sj = jc.plane_sweep_torch_one2(img[0], planes, pose[0], ks[0], kt[0],
-                                   ht, wt)
+    sj = _jit(jc.plane_sweep_torch_one2, (5, 6))(img[0], planes, pose[0],
+                                                 ks[0], kt[0], ht, wt)
     assert st.shape == (1, ht, wt, 12)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-3)
 
@@ -291,7 +304,8 @@ class TestPlanarTransforms:
     imgs, pix, k, rot, t, n_hat, a = args
     got = tc.transform_plane_imgs_torch(imgs, pix, k, k, rot, t, n_hat, a,
                                         **CPU)
-    want = jc.transform_plane_imgs_torch(imgs, pix, k, k, rot, t, n_hat, a)
+    want = _jit(jc.transform_plane_imgs_torch)(imgs, pix, k, k, rot, t,
+                                               n_hat, a)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
   def test_planar_transform(self, rng):
@@ -302,14 +316,15 @@ class TestPlanarTransforms:
     a_l = np.stack([a * (i + 1) for i in range(n)])
     got = tc.planar_transform_torch(imgs_l, pix, k, k, rot, t, n_l, a_l,
                                     **CPU)
-    want = jc.planar_transform_torch(imgs_l, pix, k, k, rot, t, n_l, a_l)
+    want = _jit(jc.planar_transform_torch)(imgs_l, pix, k, k, rot, t, n_l,
+                                           a_l)
     assert got.shape == (n, 1, 16, 16, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
   def test_sampler_wrappers(self, rng):
     imgs = rng.uniform(size=(2, 9, 11, 3)).astype(np.float32)
     coords = rng.uniform(-0.1, 1.1, (2, 5, 7, 2)).astype(np.float32)
-    want = np.asarray(jc.resampler_wrapper_torch(imgs, coords))
+    want = np.asarray(_jit(jc.resampler_wrapper_torch)(imgs, coords))
     for name in ("resampler_wrapper_torch", "bilinear_wrapper_torch"):
       got = getattr(tc, name)(imgs, coords, **CPU)
       assert got.shape == (2, 5, 7, 3)  # NHWC: quirk Q1 not reproduced
@@ -348,20 +363,22 @@ class TestSmallHelpersAndCrops:
   def test_crops(self, rng):
     img = rng.uniform(size=(1, 12, 14, 3)).astype(np.float32)
     got = tc.crop_to_bounding_box_torch(img, 2, 3, 6, 8, **CPU)
-    want = jc.crop_to_bounding_box_torch(img, 2, 3, 6, 8)
+    want = _jit(jc.crop_to_bounding_box_torch, (1, 2, 3, 4))(img, 2, 3, 6, 8)
     assert got.shape == (1, 6, 8, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     # A fractional offset through the core function.
     np.testing.assert_allclose(
         tcamera.crop_to_bounding_box(torch.from_numpy(img), 1.5, 2.25, 5,
                                      7).numpy(),
-        np.asarray(jcamera.crop_to_bounding_box(img, 1.5, 2.25, 5, 7)),
+        np.asarray(_jit(jcamera.crop_to_bounding_box, (1, 2, 3, 4))(
+            img, 1.5, 2.25, 5, 7)),
         atol=1e-5)
     k = np.array([[0.9, 0, 0.5], [0, 1.1, 0.5], [0, 0, 1]],
                  np.float32)[None]
     ct, kt = tc.crop_image_and_adjust_intrinsics_torch(img, k, 2, 3, 6, 8,
                                                        **CPU)
-    cj, kj = jc.crop_image_and_adjust_intrinsics_torch(img, k, 2, 3, 6, 8)
+    cj, kj = _jit(jc.crop_image_and_adjust_intrinsics_torch, (2, 3, 4, 5))(
+        img, k, 2, 3, 6, 8)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-5)
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), atol=1e-5)
 

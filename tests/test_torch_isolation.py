@@ -118,6 +118,22 @@ def test_scan_covers_the_compat_and_flight_recorder_slice():
     assert name in mods
 
 
+def test_scan_covers_the_session_asset_and_train_queue_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.serve.session",
+               "mpi_vision_tpu_torch.serve.session.protocol",
+               "mpi_vision_tpu_torch.serve.session.predictor",
+               "mpi_vision_tpu_torch.serve.session.manager",
+               "mpi_vision_tpu_torch.serve.assets",
+               "mpi_vision_tpu_torch.serve.assets.store",
+               "mpi_vision_tpu_torch.serve.assets.fetch",
+               "mpi_vision_tpu_torch.serve.cluster",
+               "mpi_vision_tpu_torch.serve.cluster.router",
+               "mpi_vision_tpu_torch.train.queue",
+               "mpi_vision_tpu_torch.train.supervisor"):
+    assert name in mods
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"

@@ -8,6 +8,12 @@ through the L2 render loss — the port renders through
 versions forward and backward — agree with ``jax.grad`` within 1e-3 of
 each tensor's largest entry (the stereo-mag step's bound); three Adam
 steps at config 5's 1e-3 give the same losses within 1e-4.
+
+The JAX side is shared: one module-scoped ``init`` per mix, and one
+jitted Adam step of the render loss (its loss and gradients, and optax's
+update) serves the gradient case and all three Adam steps (eager JAX
+compiles each primitive of the render, its VJP and optax's per-leaf update
+apart, which made those two cases the file's slowest).
 """
 
 import jax
@@ -40,11 +46,27 @@ def _inputs(seed=0, b=1):
   return net_input, tgt, pose, depths, k
 
 
-def _pair(mix=2, seed=0):
-  net_input = _inputs(seed)[0]
-  jmodel = jtu.TinyPlaneUNet(width=WIDTH, mix=mix)
-  params = jmodel.init(jax.random.PRNGKey(seed),
-                       jtu.psv_from_net_input(jnp.asarray(net_input), P))
+@pytest.fixture(scope="module")
+def jax_models():
+  """``mix -> (jmodel, params)``, each initialised once."""
+  cache = {}
+
+  def get(mix):
+    if mix not in cache:
+      net_input = _inputs(0)[0]
+      jmodel = jtu.TinyPlaneUNet(width=WIDTH, mix=mix)
+      params = jmodel.init(jax.random.PRNGKey(0),
+                           jtu.psv_from_net_input(jnp.asarray(net_input), P))
+      cache[mix] = (jmodel, params)
+    return cache[mix]
+
+  return get
+
+
+def _pair(jax_models, mix=2):
+  """The JAX module and its params, and a fresh port module carrying
+  them (the port's is rebuilt each time: the cases train it)."""
+  jmodel, params = jax_models(mix)
   tmodel = ttu.TinyPlaneUNet(P, width=WIDTH, mix=mix)
   tmodel.load_state_dict(ttu.state_dict_from_jax_params(
       jax.tree_util.tree_map(np.asarray, params)), strict=True)
@@ -60,8 +82,8 @@ def test_psv_from_net_input_equals_jax():
 
 
 @pytest.mark.parametrize("mix", [2, 1, 0])
-def test_forward_with_carried_weights_matches_jax(mix):
-  jmodel, params, tmodel = _pair(mix)
+def test_forward_with_carried_weights_matches_jax(jax_models, mix):
+  jmodel, params, tmodel = _pair(jax_models, mix)
   net_input = _inputs(2, b=2)[0]
   psv = jtu.psv_from_net_input(jnp.asarray(net_input), P)
   want = np.asarray(jmodel.apply(params, psv))
@@ -90,12 +112,29 @@ def test_odd_bottleneck_and_same_padding():
     tmodel(torch.zeros(1, 12, 20, 4, 6))
 
 
-def _jax_loss(jmodel, psv, tgt, pose, depths, k):
+@pytest.fixture(scope="module")
+def jax_adam_step(jax_models):
+  """One jitted optax Adam step (1e-3) of the L2 render loss of the mix-2
+  module at ``_inputs()``: ``(params, opt_state) -> (loss, grads,
+  new_params, new_opt_state)``; with optax's ``init`` and the psv."""
+  jmodel, _ = jax_models(2)
+  net_input, tgt, pose, depths, k = _inputs()
+  psv = jtu.psv_from_net_input(jnp.asarray(net_input), P)
+
   def loss_fn(p):
     mpi = jmodel.apply(p, psv)
-    out = jrender.render_mpi(mpi, pose, depths, k)
-    return jnp.mean((out - tgt) ** 2)
-  return loss_fn
+    out = jrender.render_mpi(mpi, jnp.asarray(pose), jnp.asarray(depths),
+                             jnp.asarray(k))
+    return jnp.mean((out - jnp.asarray(tgt)) ** 2)
+
+  tx = optax.adam(1e-3)
+
+  def step(params, opt_state):
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    updates, opt_state = tx.update(grads, opt_state)
+    return loss, grads, optax.apply_updates(params, updates), opt_state
+
+  return jax.jit(step), tx.init, psv
 
 
 def _torch_loss(tmodel, psv, tgt, pose, depths, k):
@@ -104,13 +143,11 @@ def _torch_loss(tmodel, psv, tgt, pose, depths, k):
   return torch.mean((out - tgt) ** 2)
 
 
-def test_render_loss_gradients_match_jax():
-  jmodel, params, tmodel = _pair()
-  net_input, tgt, pose, depths, k = _inputs()
-  psv = jtu.psv_from_net_input(jnp.asarray(net_input), P)
-  jloss, jgrads = jax.value_and_grad(_jax_loss(
-      jmodel, psv, jnp.asarray(tgt), jnp.asarray(pose), jnp.asarray(depths),
-      jnp.asarray(k)))(params)
+def test_render_loss_gradients_match_jax(jax_models, jax_adam_step):
+  _, params, tmodel = _pair(jax_models)
+  _, tgt, pose, depths, k = _inputs()
+  step, opt_init, psv = jax_adam_step
+  jloss, jgrads, _, _ = step(params, opt_init(params))
   calls = (render_fused.plain_render.calls,
            render_fused_bwd.plain_rewarp_composite_vjp.calls,
            render_fused_bwd.plain_adjoint_warp.calls)
@@ -134,19 +171,14 @@ def test_render_loss_gradients_match_jax():
                                err_msg=name)
 
 
-def test_three_adam_steps_match_optax():
-  jmodel, params, tmodel = _pair()
-  net_input, tgt, pose, depths, k = _inputs()
-  psv = jtu.psv_from_net_input(jnp.asarray(net_input), P)
-  loss_fn = _jax_loss(jmodel, psv, jnp.asarray(tgt), jnp.asarray(pose),
-                      jnp.asarray(depths), jnp.asarray(k))
-  tx = optax.adam(1e-3)
-  opt_state = tx.init(params)
+def test_three_adam_steps_match_optax(jax_models, jax_adam_step):
+  _, params, tmodel = _pair(jax_models)
+  _, tgt, pose, depths, k = _inputs()
+  step, opt_init, psv = jax_adam_step
+  opt_state = opt_init(params)
   jlosses = []
   for _ in range(3):
-    loss, grads = jax.value_and_grad(loss_fn)(params)
-    updates, opt_state = tx.update(grads, opt_state)
-    params = optax.apply_updates(params, updates)
+    loss, _, params, opt_state = step(params, opt_state)
     jlosses.append(float(loss))
   opt = torch.optim.Adam(tmodel.parameters(), lr=1e-3, betas=(0.9, 0.999),
                          eps=1e-8)
