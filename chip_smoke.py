@@ -234,9 +234,30 @@ Phases:
      in process through ``cli.cmd_train`` launches forward, A and B once a
      step and ends on the queue's digest. Each child's time to its first
      step, step ms, publish -> first frame.
+ 15. the serving cluster (``cluster [...]`` lines, the ``times_cluster``
+     JSON): 4 synthetic 1080 x 1080 x 32 scenes with ``Convention.EXACT``
+     on three backends — two ``BackendPool(device="cuda")`` children
+     (``serve --convention exact --trace``) and one in-process
+     ``RenderService`` + ``make_http_server`` added to the ``Router``
+     (replication 2) as ``b2``, so its kernel launches are counted. Every
+     child's engine is ``fused_pallas`` on the card; each scene's requests
+     land on its primary; every frame through the router equals a direct
+     in-process kernel render bit for bit. Router-added latency (one
+     client, direct to ``b1`` vs routed), renders/s under 4 clients, then
+     4 clients x 24 requests with ``b0`` SIGKILLed a third of the way:
+     0 failed requests, failovers counted, only ``b0``'s breaker opens,
+     the ``FleetSupervisor`` (over the pool's children; the in-process
+     backend has no process to respawn) respawns it on the same port and
+     it serves again through the half-open probe. One ``X-Trace-Id``
+     stitched across the router and a backend, the aggregated
+     ``/metrics`` equal to the backends' sum with the ``mpi_cluster_*``
+     families, and ``python -m mpi_vision_tpu_torch cluster --backends 2
+     --img-size 1080 --num-planes 32 --scenes 2`` (started with the
+     fleet) answering one render bit-identically and exiting 0 on
+     SIGTERM with its summary.
 Then the ``{"kernels": [...]}`` line (each row with its launches in
-phase 11's, 12's, 13's and 14's windows), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+phase 11's, 12's, 13's, 14's and 15's windows), the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -248,6 +269,7 @@ import html.parser
 import json
 import os
 import re
+import signal
 import socket
 import statistics
 import struct
@@ -3694,6 +3716,409 @@ def card_memory_used_mb():
     return None
 
 
+CLUSTER_IMG, CLUSTER_PLANES, CLUSTER_SCENES = 1080, 32, 4
+CLUSTER_CLIENTS = 4
+CLUSTER_PER_CLIENT = 24
+# The pool's children are b0 and b1; the in-process backend joins the ring
+# as b2. Ring placement (replication 2) of scene_000..003 over them:
+# b0 is the primary of scene_000 and scene_002, so it is the victim.
+CLUSTER_LOCAL_ID = "b2"
+CLUSTER_VICTIM = "b0"
+CLUSTER_LATENCY_REQS = 16
+
+
+def _cluster_post(port: int, scene_id: str, pose, timeout: float = 120.0):
+  """``POST /render`` (octet-stream) -> ``(status, headers, body, ms)``;
+  a request that got no HTTP answer raises."""
+  body = json.dumps({"scene_id": scene_id, "pose": pose.tolist()}).encode()
+  req = urllib.request.Request(
+      f"http://127.0.0.1:{port}/render", data=body,
+      headers={"Content-Type": "application/json",
+               "Accept": "application/octet-stream"})
+  t0 = time.perf_counter()
+  try:
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+      data = resp.read()
+      return (resp.status, dict(resp.headers.items()), data,
+              (time.perf_counter() - t0) * 1e3)
+  except urllib.error.HTTPError as e:
+    with e:
+      return (e.code, dict(e.headers.items()), e.read(),
+              (time.perf_counter() - t0) * 1e3)
+
+
+def _quantile(values, q: float) -> float:
+  ordered = sorted(values)
+  return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def phase15_cluster(torch, dev, workdir: str) -> dict:
+  """The serving cluster on the card (see the module docstring): a router
+  over two ``BackendPool`` children and one in-process backend, a
+  supervisor over the children, a SIGKILL under 4 clients, the stitched
+  trace, the aggregated ``/metrics``, and the ``cluster`` CLI."""
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.obs import Tracer, parse_metrics_text
+  from mpi_vision_tpu_torch.serve import RenderService, make_http_server
+  from mpi_vision_tpu_torch.serve.cluster import (
+      BackendPool,
+      FleetSupervisor,
+      Router,
+      make_router_http_server,
+  )
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, co.plain_composite,
+            rb.plain_rewarp_composite_vjp, rb.plain_adjoint_warp)
+  device = dev.type
+  size, planes_n = CLUSTER_IMG, CLUSTER_PLANES
+  t_phase = time.perf_counter()
+  out: dict = {}
+  backend_args = ["--convention", "exact", "--cache-mb", "4096",
+                  "--max-batch", "8", "--max-wait-ms", "2", "--trace"]
+  cli_proc = pool = sup = svc = local_httpd = rsrv = router = None
+  cli_log = fanout = None
+  try:
+    # Everything that makes scenes starts at once: the CLI's fleet, the
+    # pool's two children and the in-process backend (host numpy each).
+    cli_port_file = os.path.join(workdir, "cli.port")
+    cli_log = open(os.path.join(workdir, "cli.log"), "wb")
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "mpi_vision_tpu_torch", "cluster",
+         "--backends", "2", "--img-size", str(size), "--num-planes",
+         str(planes_n), "--scenes", "2", "--port", "0", "--port-file",
+         cli_port_file, "--device", device, "--backend-args",
+         "--convention exact"],
+        stdout=subprocess.PIPE, stderr=cli_log, cwd=ROOT)
+    svc = RenderService(device=device, convention=Convention.EXACT,
+                        max_batch=8, max_wait_ms=2.0, cache_bytes=4 << 30,
+                        tracer=Tracer())
+    local: dict = {}
+
+    def make_local():
+      try:
+        local["ids"] = svc.add_synthetic_scenes(
+            CLUSTER_SCENES, height=size, width=size, planes=planes_n)
+        svc.warmup()
+      except Exception as e:  # noqa: BLE001 - reported by the check below
+        local["error"] = e
+
+    local_thread = threading.Thread(target=make_local)
+    local_thread.start()
+    pool = BackendPool(2, scenes=CLUSTER_SCENES, img_size=size,
+                       planes=planes_n, device=device,
+                       extra_args=backend_args, workdir=workdir,
+                       startup_timeout_s=400.0, log=log)
+    t0 = time.perf_counter()
+    try:
+      pool.start()
+    finally:
+      local_thread.join(400)
+    check("ids" in local, f"in-process backend: {local.get('error')!r}")
+    sids = local["ids"]
+    out["fleet_up_s"] = time.perf_counter() - t0
+    local_httpd = make_http_server(svc, port=0)
+    threading.Thread(target=local_httpd.serve_forever, daemon=True).start()
+    local_addr = f"127.0.0.1:{local_httpd.server_address[1]}"
+    router = Router(pool.addresses(), replication=2, breaker_threshold=2,
+                    breaker_reset_s=1.0, render_timeout_s=120.0,
+                    tracer=Tracer())
+    router.add_backend(CLUSTER_LOCAL_ID, local_addr)
+    rsrv = make_router_http_server(router, port=0)
+    threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+    rport = rsrv.server_address[1]
+    placement = {sid: router.placement(sid) for sid in sids}
+    log(f"cluster: fleet up in {out['fleet_up_s']:.1f}s "
+        f"{json.dumps(router.addresses())}; placement {json.dumps(placement)}")
+    check(placement[sids[0]][0] == CLUSTER_VICTIM
+          and any(p[0] == CLUSTER_LOCAL_ID for p in placement.values()),
+          f"placement moved: {placement}")
+
+    # 1. every child renders with the kernel on the card.
+    for bid, addr in pool.addresses().items():
+      _, stats = get_json(int(addr.rsplit(":", 1)[1]), "/stats")
+      log(f"cluster: {bid} engine {json.dumps(stats['engine'])}")
+      check(stats["engine"]["platform"] == device
+            and stats["engine"]["method"] == "fused_pallas",
+            f"{bid} engine {stats['engine']}")
+
+    # The frames every request must return, rendered in process before
+    # the counted window (these launches compare, they do not serve).
+    poses = [pan_pose(1.5 * i - 4.0, 0.01 * i, -0.005 * i) for i in range(6)]
+    expected = {}
+    for sid in sids:
+      scene = svc.cache.get(sid)
+      views = render.render_views(
+          scene.rgba_layers, torch.from_numpy(np.stack(poses)).to(dev),
+          scene.depths, scene.intrinsics, convention=Convention.EXACT,
+          method="fused_pallas").cpu().numpy()
+      for i in range(len(poses)):
+        expected[(sid, i)] = np.ascontiguousarray(views[i]).tobytes()
+    del views
+    fanout = concurrent.futures.ThreadPoolExecutor(CLUSTER_CLIENTS)
+
+    def load(per_client: int, on_done=None) -> list:
+      """``CLUSTER_CLIENTS`` closed-loop clients across the scenes; each
+      result is ``(sid, backend, status, ms, exact, error)``."""
+      def client(c):
+        rows = []
+        for i in range(per_client):
+          sid, k = sids[(c + i) % len(sids)], (c * 7 + i) % len(poses)
+          try:
+            status, hdrs, body, ms = _cluster_post(rport, sid, poses[k])
+            rows.append((sid, hdrs.get("X-Backend-Id"), status, ms,
+                         body == expected[(sid, k)], None))
+          except Exception as e:  # noqa: BLE001 - counted as a failure
+            rows.append((sid, None, None, None, False, repr(e)))
+          if on_done is not None:
+            on_done()
+        return rows
+      futs = [fanout.submit(client, c) for c in range(CLUSTER_CLIENTS)]
+      return [row for f in futs for row in f.result(600)]
+
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+    t_window = time.perf_counter()
+
+    # 3. each scene lands on its primary while the fleet is whole.
+    before = router.metrics.snapshot()["forwards"]
+    for sid in sids:
+      for k in range(2):
+        status, hdrs, body, _ = _cluster_post(rport, sid, poses[k])
+        check(status == 200 and hdrs.get("X-Backend-Id") == placement[sid][0]
+              and body == expected[(sid, k)],
+              f"{sid}: {status} from {hdrs.get('X-Backend-Id')}, want "
+              f"{placement[sid][0]} and the direct render's bits")
+    after = router.metrics.snapshot()["forwards"]
+    want = {}
+    for sid in sids:
+      want[placement[sid][0]] = want.get(placement[sid][0], 0) + 2
+    got = {b: after.get(b, 0) - before.get(b, 0) for b in after}
+    got = {b: n for b, n in got.items() if n}
+    check(got == want, f"forwards {got} != ring placement {want}")
+    log(f"cluster: placement pass forwards {json.dumps(got)}")
+
+    # Router-added latency: one client, one scene, direct vs routed.
+    b1_port = int(pool.addresses()["b1"].rsplit(":", 1)[1])
+    sid_b1 = next(s for s in sids if placement[s][0] == "b1")
+    direct_ms, routed_ms = [], []
+    for i in range(CLUSTER_LATENCY_REQS):
+      k = i % len(poses)
+      s1, _, body1, ms1 = _cluster_post(b1_port, sid_b1, poses[k])
+      s2, _, body2, ms2 = _cluster_post(rport, sid_b1, poses[k])
+      check(s1 == s2 == 200 and body1 == body2 == expected[(sid_b1, k)],
+            "direct and routed frames differ")
+      direct_ms.append(ms1)
+      routed_ms.append(ms2)
+
+    # Renders/s through the router under 4 clients, the fleet whole.
+    t0 = time.perf_counter()
+    clean = load(CLUSTER_PER_CLIENT // 2)
+    clean_s = time.perf_counter() - t0
+    check(all(r[2] == 200 and r[4] for r in clean),
+          f"clean load: {[r for r in clean if r[2] != 200 or not r[4]][:2]}")
+
+    # 4. SIGKILL a child part way through the same load.
+    sup = FleetSupervisor(pool, router=router, events=router.events,
+                          probe_s=0.5, wedge_after=10, restart_budget=3,
+                          budget_window_s=600.0, backoff_base_s=0.1,
+                          load_refresh_s=0, log=log).start()
+    old_port = pool.addresses()[CLUSTER_VICTIM]
+    done = [0]
+    lock = threading.Lock()
+    killed = threading.Event()
+    kill_at: list = []
+
+    def count():
+      with lock:
+        done[0] += 1
+        fire = done[0] == CLUSTER_CLIENTS * CLUSTER_PER_CLIENT // 3
+      if fire:
+        kill_at.append(time.perf_counter())
+        pool.kill(CLUSTER_VICTIM)
+        killed.set()
+
+    fo0 = router.metrics.snapshot()["failovers"]
+    t0 = time.perf_counter()
+    chaos = load(CLUSTER_PER_CLIENT, on_done=count)
+    chaos_s = time.perf_counter() - t0
+    check(killed.is_set(), "the kill never fired")
+    failed = [r for r in chaos if r[2] != 200 or not r[4]]
+    failovers = router.metrics.snapshot()["failovers"] - fo0
+    breakers = {b: router.breaker_state(b) for b in router.backend_ids()}
+    opened = sorted({e["backend"] for e in router.events.snapshot(
+        recent=512)["events"] if e["kind"] == "breaker"
+        and e.get("new") == "open"})
+    log(f"cluster: kill round {len(chaos)} requests in {chaos_s:.2f}s, "
+        f"{len(failed)} failed, {failovers} failovers, breakers "
+        f"{json.dumps(breakers)}, opened {opened}")
+    check(not failed, f"requests failed across the kill: {failed[:3]}")
+    check(failovers >= 1, "the router recorded no failover")
+    check(opened == [CLUSTER_VICTIM], f"breakers opened: {opened}")
+    check(all(breakers[b] == "closed" for b in breakers
+              if b != CLUSTER_VICTIM), f"a live backend's breaker: {breakers}")
+    for sid, backend, *_ in chaos + clean:
+      check(backend in placement[sid], f"{sid} served by {backend}")
+
+    # 5. one trace id across the router and a child backend.
+    status, hdrs, _, _ = _cluster_post(rport, sid_b1, poses[0])
+    check(status == 200, f"trace request {status}")
+    tid = hdrs["X-Trace-Id"]
+    _, stitched = get_json(rport, f"/debug/traces?id={tid}")
+    backend_spans = {s["name"] for traces in stitched["backends"].values()
+                     for t in traces for s in t["spans"]}
+    log(f"cluster: trace {tid} processes {stitched['processes']} spans "
+        f"{stitched['spans_total']} backends {sorted(stitched['backends'])}")
+    check(stitched["router"] and list(stitched["backends"]) == ["b1"]
+          and "dispatch" in backend_spans, f"trace not stitched: {stitched}")
+
+    # 7. the cluster CLI, up since the start of the phase.
+    deadline = time.monotonic() + 400.0
+    while not os.path.exists(cli_port_file):
+      check(cli_proc.poll() is None and time.monotonic() < deadline,
+            f"cluster CLI did not come up (rc {cli_proc.poll()})")
+      time.sleep(0.2)
+    with open(cli_port_file) as fh:
+      cli_port = int(fh.read().strip())
+    status, hdrs, body, cli_ms = _cluster_post(cli_port, sids[1], poses[2])
+    check(status == 200 and body == expected[(sids[1], 2)],
+          f"cluster CLI render {status} not the direct render's bits")
+    cli_proc.send_signal(signal.SIGTERM)
+    cli_out, _ = cli_proc.communicate(timeout=180)
+    check(cli_proc.returncode == 0, f"cluster CLI rc {cli_proc.returncode}")
+    cli_summary = json.loads(cli_out.decode().strip().splitlines()[-1])
+    check(cli_summary["command"] == "cluster"
+          and cli_summary["router"]["requests"] >= 1,
+          f"cluster CLI summary {cli_summary}")
+    log(f"cluster: CLI answered in {cli_ms:.1f} ms and exited 0: "
+        f"{json.dumps({k: cli_summary[k] for k in ('backends', 'seconds')})}")
+
+    # The supervisor's respawn serves again once the breaker re-closes.
+    victim_sid = sids[0]
+    deadline = time.monotonic() + 400.0
+    served_at = None
+    while time.monotonic() < deadline:
+      status, hdrs, body, _ = _cluster_post(rport, victim_sid, poses[1])
+      check(status == 200 and body == expected[(victim_sid, 1)],
+            f"{victim_sid} answered {status} during the respawn")
+      if hdrs.get("X-Backend-Id") == CLUSTER_VICTIM:
+        served_at = time.perf_counter()
+        break
+      time.sleep(0.25)
+    check(served_at is not None, "the respawned backend never served again")
+    respawn_s = served_at - kill_at[0]
+    snap = sup.snapshot()["backends"][CLUSTER_VICTIM]
+    check(pool.addresses()[CLUSTER_VICTIM] == old_port
+          and snap["restarts"] == 1 and router.breaker_state(
+              CLUSTER_VICTIM) == "closed",
+          f"respawn: {old_port} -> {pool.addresses()[CLUSTER_VICTIM]}, "
+          f"{snap}, breaker {router.breaker_state(CLUSTER_VICTIM)}")
+    _, stats = get_json(int(old_port.rsplit(":", 1)[1]), "/stats")
+    check(stats["engine"]["platform"] == device
+          and stats["engine"]["method"] == "fused_pallas",
+          f"respawned engine {stats['engine']}")
+    log(f"cluster: {CLUSTER_VICTIM} respawned on {old_port} and serving "
+        f"{respawn_s:.1f}s after the kill")
+
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    window_s = time.perf_counter() - t_window
+    log(f"cluster: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)} in {window_s:.1f}s; forwards "
+        f"{json.dumps(router.metrics.snapshot()['forwards'])}")
+    check(counts["render_mpi_fused"] > 0,
+          "the in-process backend never launched the kernel")
+    check(not any(plain.values()), f"a plain version ran: {plain}")
+    check(router.metrics.snapshot()["forwards"].get(CLUSTER_LOCAL_ID, 0) > 0,
+          "the router never forwarded to the in-process backend")
+
+    # 6. the aggregated /metrics sums the backends' counters.
+    sup.stop()
+    time.sleep(0.3)  # past the router's exposition TTL
+    per_backend = 0.0
+    for bid, addr in router.addresses().items():
+      with urllib.request.urlopen(f"http://{addr}/metrics",
+                                  timeout=60) as resp:
+        fams = parse_metrics_text(resp.read().decode())
+      per_backend += fams["mpi_serve_requests_total"]["samples"][
+          ("mpi_serve_requests_total", ())]
+    with urllib.request.urlopen(f"http://127.0.0.1:{rport}/metrics",
+                                timeout=60) as resp:
+      agg = parse_metrics_text(resp.read().decode())
+    summed = agg["mpi_serve_requests_total"]["samples"][
+        ("mpi_serve_requests_total", ())]
+    cluster_fams = sorted(f for f in agg if f.startswith("mpi_cluster_"))
+    log(f"cluster: /metrics requests {summed} = sum of backends "
+        f"{per_backend}; {len(cluster_fams)} mpi_cluster_* families")
+    check(summed == per_backend and summed > 0,
+          f"aggregated requests {summed} != {per_backend}")
+    check("mpi_cluster_forwards_total" in cluster_fams
+          and "mpi_cluster_failovers_total" in cluster_fams,
+          f"cluster families {cluster_fams}")
+
+    chaos_ms = [r[3] for r in chaos]
+    out.update({
+        "shape": [size, size, planes_n],
+        "scenes": len(sids),
+        "placement": placement,
+        "launches": {"cluster": counts},
+        "router_renders_per_s_4_clients": len(clean) / clean_s,
+        "router_renders_per_s_across_kill": len(chaos) / chaos_s,
+        "direct_ms": {"p50": _quantile(direct_ms, 0.5),
+                      "p99": _quantile(direct_ms, 0.99)},
+        "routed_ms": {"p50": _quantile(routed_ms, 0.5),
+                      "p99": _quantile(routed_ms, 0.99)},
+        "router_added_p50_ms": (_quantile(routed_ms, 0.5)
+                                - _quantile(direct_ms, 0.5)),
+        "clean_load_ms": {"p50": _quantile([r[3] for r in clean], 0.5),
+                          "p99": _quantile([r[3] for r in clean], 0.99)},
+        "kill_round": {"requests": len(chaos), "failed": len(failed),
+                       "failovers": failovers,
+                       "worst_ms": max(chaos_ms),
+                       "p50_ms": _quantile(chaos_ms, 0.5)},
+        "kill_to_serving_s": respawn_s,
+        "cli_render_ms": cli_ms,
+        "window_s": window_s,
+    })
+  finally:
+    if fanout is not None:
+      fanout.shutdown(wait=True)
+    if sup is not None:
+      sup.stop()
+    if cli_proc is not None and cli_proc.poll() is None:
+      # SIGTERM first: the CLI closes its own pool of children.
+      cli_proc.send_signal(signal.SIGTERM)
+      try:
+        cli_proc.communicate(timeout=120)
+      except subprocess.TimeoutExpired:
+        cli_proc.kill()
+        cli_proc.communicate(timeout=30)
+    if cli_log is not None:
+      cli_log.close()
+    if rsrv is not None:
+      rsrv.shutdown()
+      rsrv.server_close()
+    if router is not None:
+      router.close()
+    if pool is not None:
+      pool.close()
+    if local_httpd is not None:
+      local_httpd.shutdown()
+      local_httpd.server_close()
+    if svc is not None:
+      svc.close()
+  out["phase_s"] = time.perf_counter() - t_phase
+  log(f"cluster: phase 15 took {out['phase_s']:.1f}s")
+  return out
+
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -4058,6 +4483,14 @@ def main() -> int:
       "card": card, **stream,
       "seconds_total": time.perf_counter() - t_start}}))
 
+  # -- 15. the serving cluster: router, pool, supervisor, the CLI -----------
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as workdir:
+    cluster = phase15_cluster(torch, dev, workdir)
+  log(json.dumps({"times_cluster": {
+      "card": card, **cluster,
+      "seconds_total": time.perf_counter() - t_start}}))
+
   # -- result lines --------------------------------------------------------
   v1, v1p, v8 = (bwd_times[k] for k in ("v1", "v1_pan10", "v8"))
   resumed = resil["launches"]["resumed"]
@@ -4109,6 +4542,9 @@ def main() -> int:
     row["phase14_launches"] = {
         window: counts[counters[row["name"]]]
         for window, counts in stream["launches"].items()}
+    row["phase15_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in cluster["launches"].items()}
   # The compose kernel against its plain version at brownout's shapes
   # (thinned planes, 540-row targets).
   comp_row = next(row for row in rows if row["name"] == "over_composite")

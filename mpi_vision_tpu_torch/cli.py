@@ -34,7 +34,16 @@
     ``--session`` serves pose-in / frame-out streams at ``POST /session``;
     a ``--tiled`` service runs the scene-asset tier (``/scenes``,
     ``/scene/{id}/manifest|asset|viewer``) and, with ``--asset-sync-from``,
-    follows a peer's scenes by tile diff.
+    follows a peer's scenes by tile diff. ``--resilience`` (on by default;
+    ``--retries``/``--backoff-*``/``--breaker-*``/``--watchdog-s``) sets the
+    retry, breaker and watchdog layer, ``--trace`` (on by default) records
+    each request's span tree for ``/debug/traces``.
+  * ``cluster`` — the routing tier (serve/cluster/): a consistent-hash
+    router over ``--backends N`` local ``serve --device <device>`` children
+    (the card by default) or ``--join``ed backends, with per-backend
+    breakers, a retry budget, failover and stitched traces; ``--supervise``
+    restarts dead or wedged backends, ``--peers``/``--lease-dir`` replicate
+    the control plane, and ``--autoscale`` grows and shrinks the pool.
   * ``train-queue`` — drain a durable training job queue (train/queue.py)
     through supervised ``train --device <device>`` children
     (train/supervisor.py): wedge detection, budgeted retries, poison-job
@@ -446,7 +455,9 @@ def cmd_serve(args: argparse.Namespace) -> dict:
   import threading
 
   from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.obs.trace import Tracer
   from mpi_vision_tpu_torch.serve import RenderService, make_http_server
+  from mpi_vision_tpu_torch.serve.resilience import ResilienceConfig
 
   if not args.ckpt:
     # These flags only act through the checkpoint bridge; silently
@@ -525,10 +536,24 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       raise SystemExit(f"bad session config: {e}") from None
   convention = Convention.EXACT if args.convention == "exact" else None
   degraded = _degraded_mode_kwargs(args)
+  resilience = None
+  if args.resilience:
+    resilience = ResilienceConfig(
+        max_retries=args.retries,
+        backoff_base_s=args.backoff_ms / 1e3,
+        backoff_max_s=args.backoff_max_ms / 1e3,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        watchdog_s=args.watchdog_s if args.watchdog_s > 0 else None)
+  tracer = None
+  if args.trace:
+    tracer = Tracer(ring=args.trace_ring,
+                    emit=_log if args.trace_log else None)
   try:
     svc = RenderService(
         cache_bytes=args.cache_mb << 20, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_inflight=max_inflight,
+        max_inflight_cap=args.max_inflight_cap,
         method=(args.method
                 if args.method_given or not (args.tiled or args.brownout)
                 else "pallas"),
@@ -537,7 +562,7 @@ def cmd_serve(args: argparse.Namespace) -> dict:
         asset_cache_bytes=(args.asset_cache_mb
                            if args.asset_cache_mb is not None else 256) << 20,
         convention=convention, device=args.device, max_queue=args.max_queue,
-        session=session, **degraded)
+        resilience=resilience, tracer=tracer, session=session, **degraded)
   except ValueError as e:  # a method that cannot render crops/targets
     raise SystemExit(str(e)) from None
   if args.mpi_dir:
@@ -708,6 +733,7 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       **({"ship": stats["ship"]} if "ship" in stats else {}),
       **({"incidents": stats["incidents"]} if "incidents" in stats
          else {}),
+      **({"traces": svc.tracer.finished} if args.trace else {}),
   }
 
 
@@ -1170,6 +1196,421 @@ def _degraded_mode_kwargs(args: argparse.Namespace) -> dict:
   return out
 
 
+def cmd_cluster(args: argparse.Namespace) -> dict:
+  import signal
+  import threading
+
+  from mpi_vision_tpu_torch.obs import Tracer
+  from mpi_vision_tpu_torch.serve.cluster import (
+      BackendPool,
+      FileLease,
+      FleetSupervisor,
+      GossipLease,
+      GossipNode,
+      GossipState,
+      RemoteBackendPool,
+      Router,
+      make_router_http_server,
+  )
+
+  if bool(args.backends) == bool(args.join):
+    raise SystemExit(
+        "cluster needs exactly one of --backends N (spawn a local pool) "
+        "or --join host:port,... (front existing backends)")
+  if args.rolling_restart and not args.backends:
+    # A rolling restart needs process control; --join fronts backends
+    # some other supervisor (k8s, systemd) owns. --supervise on --join
+    # IS allowed: it degrades to remote health watching + an optional
+    # restart webhook (RemoteBackendPool).
+    raise SystemExit(
+        "--rolling-restart require --backends (a local pool this "
+        "process can kill and respawn)")
+  if args.restart_hook is not None and not args.supervise:
+    raise SystemExit("--restart-hook requires --supervise (the hook is "
+                     "only invoked by the supervisor's restart path)")
+  if args.restart_hook is not None and args.backends:
+    raise SystemExit(
+        "--restart-hook requires --join (a local pool respawns its own "
+        "children; the webhook is for fleets this process cannot spawn)")
+  if args.restart_hook_timeout_s is not None:
+    if args.restart_hook is None:
+      raise SystemExit(
+          "--restart-hook-timeout-s requires --restart-hook")
+    if args.restart_hook_timeout_s <= 0:
+      raise SystemExit(f"--restart-hook-timeout-s must be > 0, "
+                       f"got {args.restart_hook_timeout_s}")
+  autoscale_knobs = [flag for flag, on in (
+      ("--autoscale-min", args.autoscale_min is not None),
+      ("--autoscale-max", args.autoscale_max is not None),
+      ("--autoscale-up-sustain-s", args.autoscale_up_sustain_s is not None),
+      ("--autoscale-down-sustain-s",
+       args.autoscale_down_sustain_s is not None),
+      ("--autoscale-up-cooldown-s",
+       args.autoscale_up_cooldown_s is not None),
+      ("--autoscale-down-cooldown-s",
+       args.autoscale_down_cooldown_s is not None),
+      ("--autoscale-queue-high", args.autoscale_queue_high is not None),
+      ("--autoscale-burn-high", args.autoscale_burn_high is not None),
+      ("--autoscale-util-low", args.autoscale_util_low is not None),
+      ("--autoscale-budget", args.autoscale_budget is not None),
+      ("--autoscale-budget-window-s",
+       args.autoscale_budget_window_s is not None),
+      ("--autoscale-drain-s", args.autoscale_drain_s is not None),
+      ("--autoscale-interval-s", args.autoscale_interval_s is not None),
+  ) if on]
+  if autoscale_knobs and not args.autoscale:
+    raise SystemExit(
+        f"{', '.join(autoscale_knobs)} require(s) --autoscale")
+  if args.autoscale and not args.supervise:
+    raise SystemExit(
+        "--autoscale requires --supervise (only the lease-holding "
+        "supervisor may scale the fleet)")
+  if args.provision_hook is not None:
+    if not args.autoscale:
+      raise SystemExit("--provision-hook requires --autoscale (it is "
+                       "only invoked by the autoscaler's spawn path)")
+    if args.backends:
+      raise SystemExit(
+          "--provision-hook requires --join (a local pool spawns its "
+          "own children; the hook is for fleets this process cannot)")
+  if args.autoscale and not args.backends and args.provision_hook is None:
+    raise SystemExit(
+        "--autoscale with --join requires --provision-hook (this "
+        "process has no way to spawn remote capacity)")
+  if args.autoscale_interval_s is not None and args.autoscale_interval_s <= 0:
+    raise SystemExit(f"--autoscale-interval-s must be > 0, "
+                     f"got {args.autoscale_interval_s}")
+  if args.autoscale_drain_s is not None and args.autoscale_drain_s < 0:
+    raise SystemExit(f"--autoscale-drain-s must be >= 0, "
+                     f"got {args.autoscale_drain_s}")
+  autoscale_config = None
+  if args.autoscale:
+    from mpi_vision_tpu_torch.serve.cluster import AutoscaleConfig
+
+    kw = {}
+    if args.autoscale_min is not None:
+      kw["min_backends"] = args.autoscale_min
+    if args.autoscale_max is not None:
+      kw["max_backends"] = args.autoscale_max
+    if args.autoscale_up_sustain_s is not None:
+      kw["up_sustain_s"] = args.autoscale_up_sustain_s
+    if args.autoscale_down_sustain_s is not None:
+      kw["down_sustain_s"] = args.autoscale_down_sustain_s
+    if args.autoscale_up_cooldown_s is not None:
+      kw["up_cooldown_s"] = args.autoscale_up_cooldown_s
+    if args.autoscale_down_cooldown_s is not None:
+      kw["down_cooldown_s"] = args.autoscale_down_cooldown_s
+    if args.autoscale_queue_high is not None:
+      # Recover thresholds keep the default trip:recover ratio so one
+      # knob moves the whole hysteresis band.
+      kw["queue_high"] = args.autoscale_queue_high
+      kw["queue_recover"] = args.autoscale_queue_high * 0.25
+    if args.autoscale_burn_high is not None:
+      kw["burn_high"] = args.autoscale_burn_high
+      kw["burn_recover"] = args.autoscale_burn_high * 0.5
+    if args.autoscale_util_low is not None:
+      kw["util_low"] = args.autoscale_util_low
+      kw["util_recover"] = max(0.35, args.autoscale_util_low * 7.0 / 3.0)
+    if args.autoscale_budget is not None:
+      kw["budget"] = args.autoscale_budget
+    if args.autoscale_budget_window_s is not None:
+      kw["budget_window_s"] = args.autoscale_budget_window_s
+    try:
+      autoscale_config = AutoscaleConfig(**kw)
+    except ValueError as e:
+      raise SystemExit(f"bad autoscale config: {e}") from None
+  if args.lease_dir is not None and not args.supervise:
+    raise SystemExit("--lease-dir requires --supervise (the lease "
+                     "elects which router replica supervises)")
+  if args.lease_ttl_s is not None:
+    if not args.supervise:
+      raise SystemExit("--lease-ttl-s requires --supervise")
+    if args.lease_ttl_s <= 0:
+      raise SystemExit(
+          f"--lease-ttl-s must be > 0, got {args.lease_ttl_s}")
+  peers = []
+  if args.peers is not None:
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
+    if not peers:
+      raise SystemExit(f"--peers parsed no addresses from {args.peers!r}")
+  if args.gossip_interval_s is not None:
+    if not peers:
+      raise SystemExit("--gossip-interval-s requires --peers")
+    if args.gossip_interval_s <= 0:
+      raise SystemExit(f"--gossip-interval-s must be > 0, "
+                       f"got {args.gossip_interval_s}")
+  if args.node_id is not None and not (peers or args.supervise):
+    raise SystemExit("--node-id requires --peers or --supervise (it "
+                     "names this router in gossip and on the lease)")
+  if args.restart_budget < 1:
+    raise SystemExit(
+        f"--restart-budget must be >= 1, got {args.restart_budget}")
+  if args.restart_window_s <= 0:
+    raise SystemExit(
+        f"--restart-window-s must be > 0, got {args.restart_window_s}")
+  if args.probe_s <= 0:
+    raise SystemExit(f"--probe-s must be > 0, got {args.probe_s}")
+  if args.wedge_after < 1:
+    raise SystemExit(f"--wedge-after must be >= 1, got {args.wedge_after}")
+  if args.tsdb_points is not None and args.tsdb_interval_s <= 0:
+    raise SystemExit("--tsdb-points requires --tsdb-interval-s > 0")
+  if args.route_cell < 0:
+    raise SystemExit(f"--route-cell must be >= 0, got {args.route_cell}")
+  if args.route_rot_bucket_deg is not None and args.route_cell <= 0:
+    # The rotation bucket only acts through cell routing.
+    raise SystemExit("--route-rot-bucket-deg requires --route-cell > 0")
+  if args.route_rot_bucket_deg is not None and args.route_rot_bucket_deg <= 0:
+    raise SystemExit(
+        f"--route-rot-bucket-deg must be > 0, got {args.route_rot_bucket_deg}")
+
+  pool = None
+  supervisor = None
+  autoscaler = None
+  try:
+    if args.backends:
+      extra = []
+      if args.backend_args:
+        extra = args.backend_args.split()
+      pool = BackendPool(
+          args.backends, scenes=args.scenes, img_size=args.img_size,
+          planes=args.num_planes, host="127.0.0.1", device=args.device,
+          extra_args=extra, log=_log)
+      _log(f"cluster: spawning {args.backends} local backend(s) on "
+           f"{args.device} [{args.scenes} scenes "
+           f"{args.img_size}x{args.img_size}x{args.num_planes}]")
+      backends = pool.start()
+    else:
+      backends = {f"b{i}": addr.strip()
+                  for i, addr in enumerate(args.join.split(","))
+                  if addr.strip()}
+      if not backends:
+        raise SystemExit(f"--join parsed no addresses from {args.join!r}")
+
+    tracer = Tracer(ring=args.trace_ring) if args.trace else None
+    router_tsdb = None
+    if args.tsdb_interval_s > 0:
+      from mpi_vision_tpu_torch.obs import TsdbConfig
+
+      defaults = TsdbConfig()
+      router_tsdb = TsdbConfig(
+          interval_s=args.tsdb_interval_s,
+          max_points=(args.tsdb_points if args.tsdb_points is not None
+                      else defaults.max_points))
+    router = Router(
+        backends, replication=args.replication, vnodes=args.vnodes,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        render_timeout_s=args.render_timeout_s,
+        health_timeout_s=args.health_timeout_s,
+        retry_budget_ratio=args.retry_budget,
+        load_aware=args.load_aware, tsdb=router_tsdb,
+        route_cell=args.route_cell,
+        route_rot_bucket_deg=(args.route_rot_bucket_deg
+                              if args.route_rot_bucket_deg is not None
+                              else 10.0),
+        metrics_ttl_s=args.metrics_ttl_ms / 1e3, tracer=tracer)
+    incidents = None
+    if args.incident_dir:
+      from mpi_vision_tpu_torch.obs import incident as incident_lib
+
+      try:
+        inc_cfg = incident_lib.IncidentConfig(dir=args.incident_dir)
+      except ValueError as e:
+        raise SystemExit(f"bad incident config: {e}") from None
+
+      def _collect_fleet(job):  # noqa: ARG001 - collector signature
+        out = {"router": router.metrics.snapshot(),
+               "events": router.events.snapshot(recent=64)}
+        if supervisor is not None:
+          out["supervisor"] = supervisor.snapshot()
+        return out
+
+      incidents = incident_lib.IncidentRecorder(
+          inc_cfg, collect=_collect_fleet).start()
+      router.set_incidents(incidents)
+      # Tee the lifecycle tap into the event log's sink: quarantines,
+      # crash loops, gossip peer deaths, and autoscale decisions each
+      # capture one black-box bundle into /debug/incidents.
+      tap = incident_lib.LifecycleIncidentTap(incidents)
+      prev_sink = router.events.sink
+      if prev_sink is None:
+        router.events.sink = tap
+      else:
+        def _tee(line, _prev=prev_sink, _tap=tap):
+          _prev(line)
+          _tap(line)
+        router.events.sink = _tee
+      _log(f"cluster: lifecycle incident capture -> {args.incident_dir}")
+    node_id = (args.node_id if args.node_id is not None
+               else f"router-{os.getpid()}")
+    lease_ttl_s = (args.lease_ttl_s if args.lease_ttl_s is not None
+                   else 5.0)
+    gossip_node = None
+    gossip_state = None
+    if peers:
+      gossip_state = GossipState(node_id, lease_ttl_s=lease_ttl_s)
+      gossip_node = GossipNode(
+          gossip_state, peers,
+          interval_s=(args.gossip_interval_s
+                      if args.gossip_interval_s is not None else 1.0),
+          events=router.events, metrics=router.metrics,
+          on_merge=router.apply_gossip_observations, log=_log)
+      router.set_gossip(gossip_node)
+    if args.supervise or args.rolling_restart:
+      # Lifecycle decisions share the router's event log so one
+      # /debug/events stream tells the whole fleet story. The monitor
+      # loop runs in BOTH modes: a rolling step whose respawn fails
+      # defers recovery to the monitor, so --rolling-restart without it
+      # would strand that backend down for the rest of the run.
+      lease = None
+      if args.lease_dir is not None:
+        lease = FileLease(
+            os.path.join(args.lease_dir, "supervisor.lease"),
+            owner=node_id, ttl_s=lease_ttl_s)
+      elif gossip_state is not None:
+        lease = GossipLease(gossip_state, owner=node_id)
+      if lease is not None:
+        router.set_lease(lease)
+      sup_pool = pool if pool is not None else RemoteBackendPool(
+          backends, restart_hook=args.restart_hook,
+          hook_timeout_s=(args.restart_hook_timeout_s
+                          if args.restart_hook_timeout_s is not None
+                          else 30.0),
+          log=_log)
+      autoscaler = None
+      if args.autoscale:
+        import shlex
+
+        from mpi_vision_tpu_torch.serve.cluster import (
+            AutoscalePolicy,
+            Autoscaler,
+        )
+
+        autoscaler = Autoscaler(
+            AutoscalePolicy(autoscale_config),
+            sup_pool, router, gossip=gossip_state,
+            events=router.events,
+            provision_hook=(shlex.split(args.provision_hook)
+                            if args.provision_hook else None),
+            scenes=(pool.scene_ids() if pool is not None else ()),
+            eval_interval_s=(args.autoscale_interval_s
+                             if args.autoscale_interval_s is not None
+                             else 1.0),
+            drain_s=(args.autoscale_drain_s
+                     if args.autoscale_drain_s is not None else 0.5),
+            log=_log)
+        _log("cluster: autoscaler armed "
+             f"[{autoscale_config.min_backends}.."
+             f"{autoscale_config.max_backends} backends, "
+             f"budget {autoscale_config.budget}/"
+             f"{autoscale_config.budget_window_s:g}s"
+             + (", provision hook" if args.provision_hook else "")
+             + "]")
+      supervisor = FleetSupervisor(
+          sup_pool, router=router, events=router.events,
+          probe_s=args.probe_s, wedge_after=args.wedge_after,
+          restart_budget=args.restart_budget,
+          budget_window_s=args.restart_window_s, log=_log,
+          lease=lease, gossip=gossip_state, autoscaler=autoscaler)
+      supervisor.start()
+      _log(f"cluster: supervisor on (probe every {args.probe_s:g}s, "
+           f"budget {args.restart_budget} restarts / "
+           f"{args.restart_window_s:g}s, wedge after {args.wedge_after} "
+           "failed probes"
+           + ("" if pool is not None else "; remote fleet"
+              + (", restart hook armed" if args.restart_hook else ""))
+           + ("" if args.supervise else "; implied by --rolling-restart")
+           + (f"; lease owner {node_id}" if lease is not None else "")
+           + ")")
+    if gossip_node is not None:
+      gossip_node.start()
+      _log(f"cluster: gossiping with {len(peers)} peer(s) as {node_id} "
+           f"every {gossip_node.interval_s:g}s")
+    httpd = make_router_http_server(router, host=args.host, port=args.port)
+    port = httpd.server_address[1]
+    if args.port_file:
+      _write_port_file(args.port_file, port)
+
+    stop_event = threading.Event()
+
+    def _on_signal(signum, frame):  # noqa: ARG001 - stdlib signature
+      stop_event.set()
+      try:
+        _log(f"cluster: received {signal.Signals(signum).name}; "
+             "shutting down")
+      except Exception:  # noqa: BLE001 - e.g. reentrant stderr write
+        pass
+
+    previous_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+      try:
+        previous_handlers[sig] = signal.signal(sig, _on_signal)
+      except (ValueError, OSError):
+        pass
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    placement_note = (f"scene_000={router.placement('scene_000')}"
+                      if args.backends else "")
+    _log(f"cluster: router listening on http://{args.host}:{port} "
+         f"(/render, /healthz, /stats, /metrics, /debug/traces) over "
+         f"{len(backends)} backend(s), replication {args.replication}"
+         + (f"; {placement_note}" if placement_note else ""))
+
+    t0 = time.time()
+    rolling_report = None
+    try:
+      if args.rolling_restart:
+        # A one-shot drill under whatever traffic the router is taking:
+        # each backend drains, respawns, and rejoins before the next.
+        rolling_report = supervisor.rolling_restart()
+      stop_event.wait(args.duration if args.duration > 0 else None)
+    finally:
+      if supervisor is not None:
+        supervisor.stop()  # releases the lease: peers take over fast
+      if gossip_node is not None:
+        gossip_node.stop()
+      httpd.shutdown()
+      router.close()
+      if incidents is not None:
+        incidents.stop()
+      for sig, handler in previous_handlers.items():
+        signal.signal(sig, handler)
+      _log("cluster: router closed")
+
+    snap = router.metrics.snapshot()
+    return {
+        "command": "cluster",
+        "host": args.host,
+        "port": port,
+        "backends": {b: addr for b, addr in sorted(backends.items())},
+        "replication": args.replication,
+        "seconds": round(time.time() - t0, 1),
+        "router": snap,
+        **({"supervisor": supervisor.snapshot()}
+           if supervisor is not None else {}),
+        **({"autoscale": autoscaler.snapshot()}
+           if autoscaler is not None else {}),
+        **({"gossip": gossip_node.snapshot()}
+           if gossip_node is not None else {}),
+        **({"rolling_restart": rolling_report}
+           if rolling_report is not None else {}),
+        **({"incidents": incidents.stats()}
+           if incidents is not None else {}),
+        **({"traces": tracer.finished} if tracer is not None else {}),
+    }
+  finally:
+    # The monitor thread must be dead BEFORE the pool closes: a tick
+    # racing pool.close() could respawn a child after close() already
+    # swept it, orphaning a serve process past CLI exit. stop() is
+    # idempotent, so the normal path's earlier stop is harmless here.
+    if supervisor is not None:
+      supervisor.stop()
+    if pool is not None:
+      pool.close()
+      _log("cluster: local backend pool closed")
+
+
 def build_parser() -> argparse.ArgumentParser:
   ap = argparse.ArgumentParser(prog="mpi_vision_tpu_torch",
                                description=__doc__.splitlines()[0])
@@ -1330,7 +1771,10 @@ def build_parser() -> argparse.ArgumentParser:
   s.add_argument("--max-inflight", default="4",
                  help="streaming-pipeline window: concurrent in-flight "
                       "batches; 1 = blocking dispatch; 'auto' starts at 2 "
-                      "and grows while the dispatch gap keeps shrinking")
+                      "and grows while the dispatch gap keeps shrinking, "
+                      "up to --max-inflight-cap")
+  s.add_argument("--max-inflight-cap", type=int, default=16,
+                 help="hard ceiling for --max-inflight auto")
   s.add_argument("--cache-mb", type=int, default=2048,
                  help="baked-scene cache byte budget")
   s.add_argument("--max-queue", type=int, default=1024,
@@ -1380,6 +1824,22 @@ def build_parser() -> argparse.ArgumentParser:
                  default=True,
                  help="build the kernel and render each batch bucket once "
                       "before serving traffic")
+  s.add_argument("--resilience", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="retry/breaker/watchdog layer (serve/resilience.py)")
+  s.add_argument("--retries", type=int, default=2,
+                 help="transient-failure retries per batch (beyond the "
+                      "first attempt)")
+  s.add_argument("--backoff-ms", type=float, default=50.0,
+                 help="base retry backoff; doubles per retry, jittered")
+  s.add_argument("--backoff-max-ms", type=float, default=2000.0,
+                 help="retry backoff cap")
+  s.add_argument("--breaker-threshold", type=int, default=5,
+                 help="consecutive device failures that open the circuit")
+  s.add_argument("--breaker-reset-s", type=float, default=30.0,
+                 help="open-circuit cooldown before a half-open probe")
+  s.add_argument("--watchdog-s", type=float, default=30.0,
+                 help="per-dispatch hang guard; <= 0 disables")
   s.add_argument("--cpu-fallback", default="off",
                  choices=("auto", "on", "off"),
                  help="degraded-mode CPU engine while the circuit breaker "
@@ -1392,6 +1852,16 @@ def build_parser() -> argparse.ArgumentParser:
                  help="pre-bake this many scenes onto the CPU fallback at "
                       "startup so the first breaker-open render does not "
                       "pay a cold bake (0 = bake lazily)")
+  s.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="record per-request span trees (X-Trace-Id header, "
+                      "/debug/traces); --no-trace is the zero-overhead "
+                      "off switch")
+  s.add_argument("--trace-ring", type=int, default=256,
+                 help="finished traces retained for /debug/traces")
+  s.add_argument("--trace-log", action="store_true",
+                 help="also emit each finished trace as a JSON line on "
+                      "stderr")
   s.add_argument("--profile-dir", default="",
                  help="enable /debug/profile?seconds=N captures "
                       "(torch.profiler, Chrome trace) into this directory")
@@ -1705,6 +2175,216 @@ def build_parser() -> argparse.ArgumentParser:
   k.add_argument("--duration", type=float, default=0.0,
                  help="seconds to run; <= 0 runs until interrupted")
   k.set_defaults(fn=cmd_ship_sink)
+
+  c = sub.add_parser(
+      "cluster",
+      help="run the multi-host routing tier (serve/cluster/): a scene-"
+           "sharded router over a pool of serve backends")
+  c.add_argument("--backends", type=int, default=0,
+                 help="spawn this many local backend processes "
+                      "(tests/demos; production backends run one per "
+                      "host and --join instead)")
+  c.add_argument("--join", default="",
+                 help="comma-separated host:port list of EXISTING serve "
+                      "backends to front (mutually exclusive with "
+                      "--backends)")
+  c.add_argument("--backend-args", default="",
+                 help="extra argv appended to every spawned backend's "
+                      "serve command (--backends mode only)")
+  c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                 help="where every spawned backend renders (its serve "
+                      "--device; --backends mode only): the card unless "
+                      "cpu is asked for. The router itself is host code")
+  c.add_argument("--host", default="127.0.0.1")
+  c.add_argument("--port", type=int, default=8070,
+                 help="router HTTP port (0 = ephemeral)")
+  c.add_argument("--port-file", default="",
+                 help="write the router's bound port here once listening")
+  c.add_argument("--duration", type=float, default=0.0,
+                 help="seconds to serve; <= 0 runs until interrupted")
+  c.add_argument("--replication", type=int, default=2,
+                 help="backends per scene on the consistent-hash ring "
+                      "(failover targets = replication - 1)")
+  c.add_argument("--vnodes", type=int, default=64,
+                 help="ring points per backend (balance smoothness)")
+  c.add_argument("--scenes", type=int, default=4,
+                 help="synthetic scenes per spawned backend (identical "
+                      "across the pool; --backends mode only)")
+  c.add_argument("--img-size", type=int, default=256)
+  c.add_argument("--num-planes", type=int, default=16)
+  c.add_argument("--breaker-threshold", type=int, default=3,
+                 help="consecutive per-backend failures that open that "
+                      "backend's circuit")
+  c.add_argument("--breaker-reset-s", type=float, default=10.0,
+                 help="per-backend open-circuit cooldown before the "
+                      "half-open probe")
+  c.add_argument("--render-timeout-s", type=float, default=120.0,
+                 help="per-attempt forward timeout (worst-case request "
+                      "latency = replication x this)")
+  c.add_argument("--health-timeout-s", type=float, default=2.0,
+                 help="per-backend budget for aggregated /healthz and "
+                      "/stats fan-outs")
+  c.add_argument("--metrics-ttl-ms", type=float, default=250.0,
+                 help="memoize the aggregated /metrics exposition this "
+                      "long (one pool fan-out per window)")
+  c.add_argument("--tsdb-interval-s", type=float, default=0.0,
+                 help="sample the AGGREGATED exposition (pooled "
+                      "mpi_serve_* + mpi_cluster_*) into a router-side "
+                      "time-series ring this often; GET /debug/tsdb "
+                      "serves it next to every backend's ring "
+                      "(<= 0 disables the router ring; the fan-out "
+                      "always runs)")
+  c.add_argument("--tsdb-points", type=int, default=None,
+                 help="points retained per series in the router ring; "
+                      "requires --tsdb-interval-s")
+  c.add_argument("--supervise", action="store_true",
+                 help="run the self-healing supervisor: /healthz probes, "
+                      "crashed/wedged backends respawned on their old "
+                      "port with exponential backoff, crash-loopers "
+                      "quarantined. With --join the supervisor has no "
+                      "process handles and degrades to remote health "
+                      "watching (DOWN/eject/quarantine/readmit semantics "
+                      "identical) plus the optional --restart-hook")
+  c.add_argument("--peers", default=None,
+                 help="comma-separated host:port list of PEER routers "
+                      "fronting the same fleet; health/eject/quarantine "
+                      "observations and supervision-lease claims spread "
+                      "by periodic anti-entropy gossip over /gossip")
+  c.add_argument("--node-id", default=None,
+                 help="this router's name in gossip and on the "
+                      "supervision lease (default router-<pid>); "
+                      "requires --peers or --supervise")
+  c.add_argument("--gossip-interval-s", type=float, default=None,
+                 help="anti-entropy round period (default 1.0); "
+                      "requires --peers")
+  c.add_argument("--lease-dir", default=None,
+                 help="directory for the on-disk supervision lease "
+                      "shared by co-located router replicas (exactly "
+                      "one holds it; a dead holder is reaped after "
+                      "--lease-ttl-s); requires --supervise. Without "
+                      "it, --peers + --join carry the lease in gossip")
+  c.add_argument("--lease-ttl-s", type=float, default=None,
+                 help="heartbeat staleness that lets a peer reap the "
+                      "supervision lease (default 5.0); requires "
+                      "--supervise")
+  c.add_argument("--restart-hook", default=None,
+                 help="command (shlex argv; backend id + address "
+                      "appended) the remote supervisor runs to restart "
+                      "a joined backend — the k8s-operator analogue; "
+                      "nonzero exits are counted restart failures, "
+                      "never fatal; requires --join --supervise")
+  c.add_argument("--restart-hook-timeout-s", type=float, default=None,
+                 help="kill the restart hook after this long (default "
+                      "30; a real respawn behind the webhook can be "
+                      "slow — size this to it); requires --restart-hook")
+  c.add_argument("--autoscale", action="store_true",
+                 help="elastic fleet: the lease-holding supervisor "
+                      "grows the pool on sustained SLO fast-burn / "
+                      "queue pressure / nonzero brownout level and "
+                      "shrinks it on sustained low utilization; new "
+                      "backends are warmed (manifest diff or render "
+                      "warm) BEFORE the ring admits them and victims "
+                      "retire drainlessly (eject -> drain -> SIGTERM); "
+                      "requires --supervise")
+  c.add_argument("--autoscale-min", type=int, default=None,
+                 help="pool floor the autoscaler never shrinks below "
+                      "(default 1)")
+  c.add_argument("--autoscale-max", type=int, default=None,
+                 help="pool ceiling the autoscaler never grows past "
+                      "(default 4)")
+  c.add_argument("--autoscale-up-sustain-s", type=float, default=None,
+                 help="seconds a scale-up trigger must hold before "
+                      "acting (default 2)")
+  c.add_argument("--autoscale-down-sustain-s", type=float, default=None,
+                 help="seconds of low utilization before a scale-down "
+                      "(default 20)")
+  c.add_argument("--autoscale-up-cooldown-s", type=float, default=None,
+                 help="minimum seconds after any scale action before "
+                      "the next scale-up (default 10)")
+  c.add_argument("--autoscale-down-cooldown-s", type=float, default=None,
+                 help="minimum seconds after any scale action before "
+                      "the next scale-down (default 30)")
+  c.add_argument("--autoscale-queue-high", type=float, default=None,
+                 help="mean backend queue depth that trips scale-up "
+                      "(default 8; the recover threshold scales with "
+                      "it to keep the hysteresis band)")
+  c.add_argument("--autoscale-burn-high", type=float, default=None,
+                 help="worst SLO fast-burn rate that trips scale-up "
+                      "(default 2.0; recover threshold scales with it)")
+  c.add_argument("--autoscale-util-low", type=float, default=None,
+                 help="fleet busy-fraction at or below which idle time "
+                      "accumulates toward scale-down (default 0.15)")
+  c.add_argument("--autoscale-budget", type=int, default=None,
+                 help="scale actions allowed per "
+                      "--autoscale-budget-window-s (RestartBudget "
+                      "semantics; default 4) — a flapping signal "
+                      "cannot thrash the ring")
+  c.add_argument("--autoscale-budget-window-s", type=float, default=None,
+                 help="the scaling-budget window (default 300)")
+  c.add_argument("--autoscale-drain-s", type=float, default=None,
+                 help="scale-down drain pause between eject and "
+                      "SIGTERM (default 0.5)")
+  c.add_argument("--autoscale-interval-s", type=float, default=None,
+                 help="minimum seconds between autoscale signal "
+                      "evaluations (default 1.0)")
+  c.add_argument("--provision-hook", default=None,
+                 help="command (shlex argv; new backend id appended) "
+                      "the autoscaler runs to provision capacity for a "
+                      "--join fleet; must print the new backend's "
+                      "host:port on stdout; requires --autoscale")
+  c.add_argument("--incident-dir", default=None,
+                 help="router-side black-box bundles: fleet-lifecycle "
+                      "edges (quarantine, crash loop, gossip peer "
+                      "death, autoscale decisions) each capture one "
+                      "deduped incident bundle here, served at "
+                      "/debug/incidents")
+  c.add_argument("--probe-s", type=float, default=1.0,
+                 help="supervisor health-probe period")
+  c.add_argument("--wedge-after", type=int, default=3,
+                 help="consecutive failed probes (timeout or unhealthy) "
+                      "that declare a live backend wedged and replace it")
+  c.add_argument("--restart-budget", type=int, default=3,
+                 help="per-backend restarts allowed inside "
+                      "--restart-window-s before the backend is "
+                      "quarantined instead of respawned (crash-loop "
+                      "containment)")
+  c.add_argument("--restart-window-s", type=float, default=60.0,
+                 help="the restart-budget window")
+  c.add_argument("--rolling-restart", action="store_true",
+                 help="perform one rolling restart of the pool under "
+                      "live traffic (eject -> drain -> SIGTERM -> "
+                      "respawn -> readmit, one backend at a time), then "
+                      "keep serving; implies the --supervise monitor "
+                      "loop (a failed step's backend must be retried); "
+                      "requires --backends")
+  c.add_argument("--route-cell", type=float, default=0.0,
+                 help="view-cell translation pitch for tile-granular "
+                      "routing: quantize each request's pose and place "
+                      "it by its (scene, cell) ring key, spreading a hot "
+                      "scene over many backends while giving every cell "
+                      "a deterministic home whose edge/tile caches stay "
+                      "warm (reroutes counted in "
+                      "mpi_cluster_cell_reroutes_total); <= 0 keeps "
+                      "scene-level placement")
+  c.add_argument("--route-rot-bucket-deg", type=float, default=None,
+                 help="view-cell rotation pitch in degrees (default 10); "
+                      "requires --route-cell > 0")
+  c.add_argument("--retry-budget", type=float, default=0.1,
+                 help="failover tokens earned per routed request "
+                      "(token-bucket retry budget: a fleet brownout "
+                      "degrades to fast 503s instead of replica-count "
+                      "retry amplification); <= 0 disables")
+  c.add_argument("--load-aware", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="demote a scene's primary behind a replica when "
+                      "fresh /stats queue depths show it markedly "
+                      "deeper (replicas render bit-identical pixels)")
+  c.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                 default=True,
+                 help="router-side request traces (W3C trace ids shared "
+                      "with backend traces via outbound traceparent)")
+  c.add_argument("--trace-ring", type=int, default=256)
+  c.set_defaults(fn=cmd_cluster)
   return ap
 
 

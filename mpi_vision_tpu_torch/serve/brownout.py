@@ -83,6 +83,12 @@ _SHED_AT = {"background": 2, "prefetch": 3, "interactive": 4}
 # requests can never share a flight or a crop memo entry.
 HALF_RES_TOKEN = "half"
 
+# Families that must NOT be summed across a fleet (a pooled "level 7"
+# from three backends at L2/L2/L3 is meaningless) — the router's
+# aggregated /metrics drops these; per-backend levels ride /stats.
+NON_ADDITIVE_FAMILIES = frozenset({"mpi_serve_brownout_level"})
+
+
 def normalize_class(value) -> str:
   """Map a header value onto a known class; unknown -> interactive."""
   if value is None:

@@ -228,6 +228,64 @@ class RestartBudget:
       }
 
 
+class RetryBudget:
+  """Token-bucket failover budget — the retry-amplification guard.
+
+  Replica failover multiplies load exactly when the fleet can least
+  afford it: in a fleet-wide brownout every request fails its primary
+  and retries ``replication - 1`` more backends, so offered load
+  multiplies by R at the moment everything is slow. The classic fix
+  (Finagle-style retry budgets) bounds aggregate retries as a fraction
+  of real traffic: every request deposits ``ratio`` tokens (capped at
+  ``cap``), every failover attempt withdraws one, and an empty bucket
+  means the caller fails fast instead of amplifying. ``initial`` tokens
+  let a cold router cover isolated failures immediately.
+
+  Pure token arithmetic (no clock); thread-safe.
+  """
+
+  def __init__(self, ratio: float = 0.1, initial: float = 10.0,
+               cap: float = 100.0):
+    if ratio <= 0:
+      raise ValueError(f"ratio must be > 0, got {ratio}")
+    if cap < initial or initial < 0:
+      raise ValueError(f"need 0 <= initial <= cap, got {initial} / {cap}")
+    self.ratio = float(ratio)
+    self.cap = float(cap)
+    self._lock = threading.Lock()
+    self._tokens = float(initial)
+    self.deposits = 0
+    self.withdrawals = 0
+    self.refused = 0
+
+  def deposit(self) -> None:
+    """One real request happened: earn ``ratio`` retry tokens."""
+    with self._lock:
+      self._tokens = min(self._tokens + self.ratio, self.cap)
+      self.deposits += 1
+
+  def try_withdraw(self) -> bool:
+    """Claim one failover attempt; False means stop retrying."""
+    with self._lock:
+      if self._tokens < 1.0:
+        self.refused += 1
+        return False
+      self._tokens -= 1.0
+      self.withdrawals += 1
+      return True
+
+  def snapshot(self) -> dict:
+    with self._lock:
+      return {
+          "tokens": round(self._tokens, 3),
+          "ratio": self.ratio,
+          "cap": self.cap,
+          "deposits": self.deposits,
+          "withdrawals": self.withdrawals,
+          "refused": self.refused,
+      }
+
+
 class CircuitBreaker:
   """CLOSED -> OPEN -> HALF_OPEN consecutive-failure circuit breaker.
 

@@ -1324,6 +1324,16 @@ class RenderService:
     return self.scheduler.render(scene_id, pose, timeout=timeout,
                                  trace=trace)
 
+  def render_traced(self, scene_id: str, pose, timeout: float = 60.0):
+    """``render`` plus a trace: returns ``(image, trace_id)``.
+
+    The trace id is "" when tracing is disabled (the HTTP layer still
+    stamps ``X-Trace-Id`` by generating its own in that case).
+    """
+    tr = self.tracer.start_trace("render", scene_id=str(scene_id))
+    return (self.scheduler.render(scene_id, pose, timeout=timeout,
+                                  trace=tr), tr.trace_id)
+
   def render_async(self, scene_id: str, pose):
     """Non-blocking render; returns a ``concurrent.futures.Future``."""
     return self.scheduler.submit(scene_id, pose)

@@ -8,8 +8,10 @@ byte for byte, the viewer page. Digests and encodings come from the
 registered host arrays in both packages. The tile-diff sync fetches
 exactly the changed tiles, over an in-process transport and over real
 HTTP between two port services, and the ``serve --asset-sync-from``
-follower reports it. The router cases of the JAX file wait for the port
-of ``serve/cluster/``.
+follower reports it. The JAX file's router cases run through the port's
+``serve/cluster`` router: an unchanged tile's ETag still answers 304
+after a partial swap, asset GETs fan past a backend that lacks the
+digest, and a replica syncs through the router.
 
 Geometry as in ``test_assets.py``: 16 x 16, 4 planes, tile 8 (2 x 2).
 """
@@ -40,6 +42,7 @@ from mpi_vision_tpu_torch.serve.assets import (
     SceneSyncWatcher,
 )
 from mpi_vision_tpu_torch.serve.assets import store as store_mod
+from mpi_vision_tpu_torch.serve.cluster import Router, make_router_http_server
 from mpi_vision_tpu_torch.serve.server import (
     make_http_server,
     synthetic_tiled_scene,
@@ -480,6 +483,95 @@ def test_http_sync_between_two_port_services_fetches_changed_tiles(
     stats = fetcher.sync_scene("s")
     assert stats["tiles_fetched"] == 2 and stats["tiles_reused"] == 2
     assert np.array_equal(replica.scene_entry("s")[0], mutated)
+  finally:
+    replica.close()
+
+
+# -- the real-HTTP / router acceptance pin ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def fleet():
+  """One scene-holding backend + one empty backend behind a real port
+  router — asset GETs must answer from whichever replica holds the
+  digest."""
+  layers, depths, k = _scene(seed=3)
+  svc = _tiled_svc(layers, depths, k)
+  empty = RenderService(device="cpu", max_batch=2, tile=TILE)
+  servers = [make_http_server(svc, port=0), make_http_server(empty, port=0)]
+  for server in servers:
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+  router = Router()
+  router.add_backend("holder", f"127.0.0.1:{servers[0].server_address[1]}")
+  router.add_backend("empty", f"127.0.0.1:{servers[1].server_address[1]}")
+  rsrv = make_router_http_server(router, port=0)
+  threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+  base = f"http://127.0.0.1:{rsrv.server_address[1]}"
+  yield svc, router, base, (layers, depths, k)
+  rsrv.shutdown()
+  router.close()
+  for server in servers:
+    server.shutdown()
+    server.server_close()
+  svc.close()
+  empty.close()
+
+
+def test_unchanged_tiles_survive_partial_swap_through_router(fleet):
+  svc, router, base, (layers, depths, k) = fleet
+  status, headers, body = _get(base, "/scene/s/manifest")
+  assert status == 200 and headers["Cache-Control"] == "no-cache"
+  man = json.loads(body)
+  unchanged = man["tiles"][1][1]  # tile (1,1): the swap won't touch it
+
+  status, headers, body = _get(base, f"/scene/s/asset/{unchanged}")
+  assert status == 200
+  assert headers["Cache-Control"] == ASSET_CACHE_CONTROL
+  etag = headers["ETag"]
+  assert etag == f'"{unchanged}"'  # strong, content-derived
+  assert hashlib.sha256(store_mod.decode_tile(body)).hexdigest() == unchanged
+
+  svc.swap_scenes({"s": (_mutate_tile00(layers), depths, k)})
+
+  status, _, body = _get(base, "/scene/s/manifest")
+  man2 = json.loads(body)
+  assert man2["scene_digest"] != man["scene_digest"]
+  assert man2["tiles"][0][0] != man["tiles"][0][0]  # the changed tile
+  assert man2["tiles"][1][1] == unchanged  # URL/digest stable across swap
+  # THE pin: a conditional GET on the unchanged tile's ETag answers 304
+  # through the real router — the client's immutable copy is still good.
+  status, headers, body = _get(base, f"/scene/s/asset/{unchanged}", etag=etag)
+  assert status == 304 and body == b""
+  # And an unconditional re-fetch is byte-identical.
+  status, headers, body = _get(base, f"/scene/s/asset/{unchanged}")
+  assert status == 200 and headers["ETag"] == etag
+
+
+def test_router_fans_asset_gets_past_404s(fleet):
+  svc, router, base, _ = fleet
+  digest = json.loads(_get(base, "/scene/s/manifest")[2])["tiles"][0][1]
+  before = router.metrics.snapshot()["scene_sync"]
+  # Whatever the placement order, the GET must land on the holder.
+  status, headers, body = _get(base, f"/scene/s/asset/{digest}")
+  assert status == 200 and headers["X-Backend-Id"] == "holder"
+  status, _, _ = _get(base, f"/scene/s/asset/{'f' * 64}")
+  assert status == 404
+  after = router.metrics.snapshot()["scene_sync"]
+  assert after["asset_misses"] == before["asset_misses"] + 1
+  assert after["asset_forwards"] >= before["asset_forwards"] + 1
+
+
+def test_scenes_union_and_sync_through_router(fleet):
+  svc, router, base, _ = fleet
+  status, _, body = _get(base, "/scenes")
+  assert status == 200 and json.loads(body) == {"scenes": ["s"]}
+  replica = RenderService(device="cpu", max_batch=2, tile=TILE)
+  try:
+    fetcher = SceneFetcher(replica, base)  # real HTTP, through the router
+    sweep = fetcher.sync_all()
+    assert sweep["scenes"] == 1 and sweep["failures"] == 0
+    assert np.array_equal(replica.scene_entry("s")[0],
+                          svc.scene_entry("s")[0])
   finally:
     replica.close()
 

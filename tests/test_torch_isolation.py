@@ -134,6 +134,29 @@ def test_scan_covers_the_session_asset_and_train_queue_slice():
     assert name in mods
 
 
+def test_scan_covers_the_cluster_slice():
+  mods = set(_port_modules())
+  for name in ("mpi_vision_tpu_torch.serve.cluster.ring",
+               "mpi_vision_tpu_torch.serve.cluster.router",
+               "mpi_vision_tpu_torch.serve.cluster.pool",
+               "mpi_vision_tpu_torch.serve.cluster.supervisor",
+               "mpi_vision_tpu_torch.serve.cluster.gossip",
+               "mpi_vision_tpu_torch.serve.cluster.lease",
+               "mpi_vision_tpu_torch.serve.cluster.autoscale",
+               "mpi_vision_tpu_torch.serve.resilience"):
+    assert name in mods
+  from mpi_vision_tpu_torch.serve import cluster
+  from mpi_vision_tpu_torch.serve.cluster import BackendPool
+
+  assert {"Router", "HashRing", "BackendPool", "FleetSupervisor",
+          "GossipNode", "FileLease", "Autoscaler"} <= set(cluster.__all__)
+  pool = BackendPool(1)
+  try:
+    assert pool.device == "cuda"  # a pool renders on the card unasked
+  finally:
+    pool.close()
+
+
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
   code = (
       "import sys\n"

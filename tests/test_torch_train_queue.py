@@ -13,7 +13,8 @@ hashes valid; the state machine on fakes (the cases of
 ``tests/test_train_queue_arc.py``: a poison job quarantined at exactly its
 budget, a SIGKILLed-then-resumed job bit-exact to its clean sibling, and
 both published checkpoints swapped live under render traffic with no
-failed request.
+failed request; and two supervisors over real children draining one
+shared queue, each job run exactly once.
 """
 
 import hashlib
@@ -1174,3 +1175,57 @@ def test_arc_publishes_served_live_with_zero_dropped_requests(arc):
     fresh.add_scene(sid, rgba, depths, k)
     np.testing.assert_array_equal(
         got, fresh.render(sid, np.eye(4, dtype=np.float32)))
+
+
+def test_two_real_workers_drain_one_queue_without_double_runs(
+    tmp_path_factory):
+  """The multi-worker smoke over REAL ``train --device cpu`` children:
+  two supervisors (distinct owners, separate work roots) drain one
+  shared queue directory. The on-disk lease protocol must hand each job
+  to exactly one worker — both jobs complete, each spawned exactly once,
+  and the two workers' spawn counts sum to the job count."""
+  root = tmp_path_factory.mktemp("train_queue_two_workers")
+  env = dict(os.environ, OMP_NUM_THREADS="1")
+  env["PYTHONPATH"] = os.pathsep.join(
+      [REPO, *filter(None, [os.environ.get("PYTHONPATH")])])
+  tiny = {"epochs": 1, "img_size": 16, "num_planes": 4,
+          "synthetic_scenes": 1, "save_every": 1, "seed": 5}
+  queue_dir = str(root / "queue")
+  submitter = JobQueue(queue_dir, lease_s=120.0)
+  submitter.submit(dict(tiny), job_id="jobA")
+  submitter.submit({**tiny, "seed": 6}, job_id="jobB")
+
+  def worker(owner):
+    queue = JobQueue(queue_dir, lease_s=120.0)
+    return TrainSupervisor(
+        queue, launcher=SubprocessLauncher(str(root / owner), env=env,
+                                           device="cpu"),
+        concurrency=1, probe_s=0.25, wedge_after=200,
+        startup_grace_s=120.0, restart_budget=2, budget_window_s=600.0,
+        backoff_base_s=0.1, backoff_max_s=0.5, owner=owner)
+
+  sup1, sup2 = worker("worker1"), worker("worker2")
+  sup1.start()
+  sup2.start()
+  try:
+    deadline = time.monotonic() + 90.0
+    while time.monotonic() < deadline:
+      with sup1._lock:
+        busy1 = bool(sup1._running)
+      with sup2._lock:
+        busy2 = bool(sup2._running)
+      if not busy1 and not busy2 and submitter.drained():
+        break
+      time.sleep(0.1)
+  finally:
+    sup1.stop()
+    sup2.stop()
+  assert submitter.drained(), submitter.snapshot()
+  for job_id in ("jobA", "jobB"):
+    job = submitter.get(job_id)
+    assert job.state == "done", job.record
+    # Exactly one attempt ran it: no double-lease, no lost-and-retried.
+    assert job.attempts == 1, job.record
+  # Both spawns happened, each under exactly one owner.
+  assert sup1.spawns_total + sup2.spawns_total == 2
+  assert sup1.failures_total + sup2.failures_total == 0
