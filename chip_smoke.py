@@ -255,15 +255,51 @@ Phases:
      --img-size 1080 --num-planes 32 --scenes 2`` (started with the
      fleet) answering one render bit-identically and exiting 0 on
      SIGTERM with its summary.
+ 16. the device mesh on one card (``mesh [...]`` lines, the ``times_mesh``
+     JSON; ``parallel/mesh.py``, a mesh of repeated devices: ``[cuda:0] *
+     n``, and every card when more than one is visible), each window with
+     the launch counts zeroed just before and read just after and no plain
+     version run in it. (a) ``render_views_sharded(method="fused_pallas")``
+     of 8 views at 1080p x 32 with ``Convention.EXACT`` on meshes of 1, 2
+     and 4: ``render_fused`` launches once per shard and the frames are
+     bit-identical to the unsharded ``render_views``; ms of each. (b)
+     ``over_composite_planes_sharded`` of a 1080p x 32 stack over 2 and 4
+     plane shards within 1e-5 of the compose kernel's output on it, and
+     ``render_views_planes_sharded`` of 2 views on a 2 x 2 mesh within
+     1e-5 of ``warp_planes`` + ``over_composite`` view by view. (c)
+     ``RenderService(use_mesh=True, devices=[cuda:0, cuda:0])`` on two
+     1080p x 32 scenes behind ``make_http_server``: 8 concurrent ``POST
+     /render`` are one dispatch of 2 launches, and 2 to the second scene
+     one dispatch of 2 launches (a view each), every frame bit-identical
+     to a direct render, ``/stats`` says
+     sharded on 2 devices; renders/s and the busy share of a profiled
+     burst beside phase 4's; then ``cli.cmd_serve`` with ``--sharded on``
+     answers one request from a mesh of every card, bit-identical to a
+     direct render. (d) ``shard_train_step_planned`` at ``TrainConfig()``
+     on ``[cuda:0] * 2`` with a batch of 4: render_fused, A and B launch
+     once per shard a step; after one step with cuDNN off (convolutions
+     sample by sample, so no sample's gradients depend on its batch) the
+     loss is within 1e-5 and every parameter within 1e-4 of
+     ``make_train_step(method="fused_pallas")`` on the same batch; with
+     cuDNN on (deterministic) the step equals gradient accumulation over
+     the same two shards on one device bit for bit, and its distance from
+     the single-device step is logged; two 3-step runs (cuDNN
+     deterministic) are bit-identical; the step ms beside the
+     single-device step's and phase 7's. With more than one card visible,
+     also: the fold over the cards, a service sharded over every card
+     (frames bit-identical to direct renders, scene replicas on the other
+     cards, a swap served everywhere) and the step over two cards (the
+     second card's replica equal to the master after it).
 Then the ``{"kernels": [...]}`` line (each row with its launches in
-phase 11's, 12's, 13's, 14's and 15's windows), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+phase 11's, 12's, 13's, 14's, 15's and 16's windows), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import base64
 import concurrent.futures
+import dataclasses
 import hashlib
 import html.parser
 import json
@@ -4119,6 +4155,615 @@ def phase15_cluster(torch, dev, workdir: str) -> dict:
   return out
 
 
+MESH_VIEWS = 8
+MESH_SIZES = (1, 2, 4)
+MESH_TRAIN_BATCH = 4
+MESH_CLI_IMG = 512
+MESH_FOLD_TOL = 1e-5
+MESH_STRAGGLER_MS = 3000.0
+
+
+def mesh_scene():
+  """Phase 16's second 1080 x 1920 x 32 ``synthetic_scene`` (host numpy,
+  made on ``main``'s scene thread while earlier phases run)."""
+  from mpi_vision_tpu_torch.serve import synthetic_scene
+
+  return synthetic_scene("mesh_001", HEIGHT, WIDTH, PLANES, seed=16)
+
+
+def mesh_across_cards(torch, cards, drill, cfg, batch, vgg, zero, read
+                      ) -> dict:
+  """Phase 16's paths over distinct cards (run when more than one card is
+  visible): the plane fold over the cards, a service sharded over every
+  card (scene replicas on the other cards, dropped with their bake), and
+  the sharded step over two cards."""
+  from mpi_vision_tpu_torch.core import render
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.parallel import mesh as pmesh
+  from mpi_vision_tpu_torch.serve import RenderService, synthetic_scene
+  from mpi_vision_tpu_torch.train import loop as train_loop
+
+  dev, n = cards[0], len(cards)
+  out: dict = {"cards": n}
+  fold_cards = cards if PLANES % n == 0 else cards[:2]
+  gen = torch.Generator(device=dev).manual_seed(17)
+  stack = torch.rand((PLANES, HEIGHT, WIDTH, 4), generator=gen, device=dev)
+  zero()
+  got = pmesh.over_composite_planes_sharded(
+      stack, pmesh.make_mesh(("planes",), devices=fold_cards))
+  read("cards_planes")
+  out["fold_max_abs_err"] = float(
+      (got - co.over_composite_pallas(stack)).abs().max())
+  log(f"mesh: the fold over {len(fold_cards)} cards: max_abs_err "
+      f"{out['fold_max_abs_err']:.3e} against compose_over")
+  check(out["fold_max_abs_err"] <= MESH_FOLD_TOL,
+        f"the fold over cards differs by {out['fold_max_abs_err']}")
+  del stack, got
+
+  svc = RenderService(devices=cards, convention=Convention.EXACT,
+                      max_batch=8, max_wait_ms=MESH_STRAGGLER_MS,
+                      cache_bytes=4 << 30)
+  try:
+    check(svc.engine.use_mesh and svc.engine.devices == list(cards),
+          f"a service over {n} cards is not sharded: "
+          f"{svc.engine.describe()}")
+    svc.add_scene("cards_000", *drill)
+    svc.warmup()
+    burst = [pan_pose(0.5 * i, 0.002 * i) for i in range(32)]
+    zero()
+    d0 = svc.engine.dispatches
+    frames = [f.result(300) for f in [svc.render_async("cards_000", p)
+                                      for p in burst]]
+    counts = read("cards_serve")
+    dispatches = svc.engine.dispatches - d0
+    check(counts["render_mpi_fused"] == n * dispatches,
+          f"{dispatches} dispatches over {n} cards launched "
+          f"{counts['render_mpi_fused']} times")
+    scene = svc.cache.get("cards_000")
+    for pose, frame in zip(burst, frames):
+      direct = render.render_views(
+          scene.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+          scene.depths, scene.intrinsics, convention=Convention.EXACT,
+          method="fused_pallas")[0].cpu().numpy()
+      check(np.array_equal(frame, direct),
+            "a frame served over the cards differs from a direct render")
+    check(list(scene.replicas) == list(cards[1:]),
+          f"scene replicas on {list(scene.replicas)}")
+    rps = []
+    for _ in range(2):
+      t0 = time.perf_counter()
+      for f in [svc.render_async("cards_000", p) for p in burst]:
+        f.result(300)
+      rps.append(len(burst) / (time.perf_counter() - t0))
+    svc.swap_scenes({"cards_000": synthetic_scene(
+        "cards_001", HEIGHT, WIDTH, PLANES, seed=18)})
+    frame = svc.render("cards_000", burst[3])
+    rebaked = svc.cache.get("cards_000")
+    direct = render.render_views(
+        rebaked.rgba_layers, torch.from_numpy(burst[3][None]).to(dev),
+        rebaked.depths, rebaked.intrinsics, convention=Convention.EXACT,
+        method="fused_pallas")[0].cpu().numpy()
+    check(rebaked is not scene and list(rebaked.replicas) == list(cards[1:])
+          and np.array_equal(frame, direct),
+          "after a swap the cards do not serve the new bake")
+    log(f"mesh: a service over {n} cards: {dispatches} dispatches, frames "
+        f"bit-identical to direct renders, replicas on the other cards "
+        f"follow a swap; renders/s {rps[0]:.2f}, {rps[1]:.2f}")
+    out["serve_renders_per_s"] = rps
+  finally:
+    svc.close()
+  del scene, rebaked
+  torch.cuda.empty_cache()
+
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    results = {}
+    for name, devices in (("cards", cards[:2]), ("one_card", [dev, dev])):
+      mesh = pmesh.make_mesh(devices=devices)
+      step = train_loop.shard_train_step_planned(mesh, vgg, cfg.vgg_resize)
+      rep = pmesh.replicate(cfg.make_train_state(0, dev), mesh)
+      zero()
+      rep, metrics = step(rep, pmesh.shard_batch(batch, mesh))
+      read(f"cards_train_{name}")
+      results[name] = (float(metrics["loss"]), rep, step)
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  _, rep, step = results["cards"]
+  refreshed = all(torch.equal(a, b.to(dev)) for a, b in zip(
+      rep.value.model.parameters(), rep.on(cards[1]).model.parameters()))
+  check(refreshed, "the replica on the second card differs from the master "
+        "after a step")
+  diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+      rep.value.model.parameters(),
+      results["one_card"][1].value.model.parameters()))
+  log(f"mesh: the sharded step over 2 cards: replica refreshed from the "
+      f"master; loss {results['cards'][0]!r} vs {results['one_card'][0]!r} "
+      f"on one card, params max diff {diff:.3e}")
+  out["train_cards_vs_one_card_max_diff"] = diff
+
+  def step_two_cards():
+    step(rep, batch)
+    torch.cuda.synchronize()
+
+  out["train_step_ms_2_cards"] = host_ms(step_two_cards, 5)
+  log(f"mesh: train step batch {MESH_TRAIN_BATCH} over 2 cards "
+      f"{out['train_step_ms_2_cards']:.2f} ms")
+  return out
+
+
+def phase16_mesh(torch, dev, drill, scene1, workdir: str,
+                 serve4: dict, step_ms7: float) -> dict:
+  """The device mesh on one card (see the module docstring): sharded view
+  renders, the plane-sharded fold, sharded serving and the CLI's
+  ``--sharded on``, and the data-parallel train step."""
+  from mpi_vision_tpu_torch import cli, config
+  from mpi_vision_tpu_torch.core import compose, render
+  from mpi_vision_tpu_torch.core.camera import intrinsics_matrix, inv_depths
+  from mpi_vision_tpu_torch.core.sampling import Convention
+  from mpi_vision_tpu_torch.data import realestate
+  from mpi_vision_tpu_torch.kernels import compose_over as co
+  from mpi_vision_tpu_torch.kernels import render_fused
+  from mpi_vision_tpu_torch.kernels import render_fused_bwd as rb
+  from mpi_vision_tpu_torch.parallel import mesh as pmesh
+  from mpi_vision_tpu_torch.serve import (
+      RenderService,
+      bake_scene,
+      make_http_server,
+      synthetic_scene,
+  )
+  from mpi_vision_tpu_torch.train import loop as train_loop
+
+  kernels = (render_fused.render_mpi_fused, rb.rewarp_composite_vjp,
+             rb.adjoint_warp, co.over_composite_pallas)
+  plains = (render_fused.plain_render, co.plain_composite,
+            rb.plain_rewarp_composite_vjp, rb.plain_adjoint_warp)
+  launches: dict = {}
+
+  def zero():
+    for fn in kernels:
+      fn.launches = 0
+    for fn in plains:
+      fn.calls = 0
+
+  def read(name: str) -> dict:
+    """The launches since ``zero()`` as window ``name``; no plain version
+    may have run in it."""
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    plain = {fn.__name__: fn.calls for fn in plains}
+    launches[name] = counts
+    log(f"mesh [{name}]: launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}")
+    check(not any(plain.values()), f"{name}: a plain version ran: {plain}")
+    return counts
+
+  t_phase = time.perf_counter()
+  out: dict = {}
+  torch.cuda.empty_cache()
+  card_count = torch.cuda.device_count()
+  meshes = {f"1x{n}": [dev] * n for n in MESH_SIZES}
+  if card_count > 1:
+    meshes[f"cards{card_count}"] = [torch.device("cuda", i)
+                                    for i in range(card_count)]
+
+  # -- (a) sharded view renders: render_fused once per shard --------------
+  gen = torch.Generator(device=dev).manual_seed(16)
+  planes = torch.rand((PLANES, HEIGHT, WIDTH, 4), generator=gen, device=dev)
+  rgba = planes.permute(1, 2, 0, 3)             # [H, W, P, 4] view, as baked
+  depths = inv_depths(1.0, 100.0, PLANES, device=dev)
+  k = intrinsics_matrix(0.5 * WIDTH, 0.5 * WIDTH, WIDTH / 2.0, HEIGHT / 2.0,
+                        device=dev)
+  poses = torch.from_numpy(np.stack([
+      pan_pose(1.5 * i - 6.0, 0.01 * i, -0.01 * i)
+      for i in range(MESH_VIEWS)])).to(dev)
+  want = render.render_views(rgba, poses, depths, k,
+                             convention=Convention.EXACT,
+                             method="fused_pallas")
+  views_ms = {"unsharded": cuda_ms(torch, lambda: render.render_views(
+      rgba, poses, depths, k, convention=Convention.EXACT,
+      method="fused_pallas"), 10)}
+  for name, devices in meshes.items():
+    mesh = pmesh.make_mesh(devices=devices)
+    n = mesh.shape["data"]
+
+    def sharded():
+      return pmesh.render_views_sharded(
+          rgba, poses, depths, k, mesh, convention=Convention.EXACT,
+          method="fused_pallas")
+
+    zero()
+    got = sharded()
+    counts = read(f"views_{name}")
+    check(counts["render_mpi_fused"] == n,
+          f"views_{name}: render_fused launched {counts['render_mpi_fused']} "
+          f"times for {n} shards")
+    check(got.device == dev and got.shape == (MESH_VIEWS, HEIGHT, WIDTH, 3),
+          f"views_{name}: frames {tuple(got.shape)} on {got.device}")
+    check(torch.equal(got, want),
+          f"views_{name}: sharded frames differ from unsharded ones by "
+          f"{float((got - want).abs().max())}")
+    views_ms[name] = cuda_ms(torch, sharded, 10)
+    log(f"mesh: render_views_sharded {name} ({n} shards x "
+        f"{MESH_VIEWS // n} views): {n} render_fused launches, frames "
+        f"bit-identical to unsharded, {views_ms[name]:.3f} ms")
+  check(bool(torch.isfinite(want).all()), "non-finite sharded frames")
+  out["render_views_ms"] = views_ms
+  del want, got
+
+  # -- (b) the plane-sharded fold ------------------------------------------
+  stack = torch.rand((PLANES, HEIGHT, WIDTH, 4), generator=gen, device=dev)
+  ref = co.over_composite_pallas(stack)                  # the compose kernel
+  fold_err, fold_ms = {}, {}
+  for n in (2, 4):
+    mesh = pmesh.make_mesh(("planes",), devices=[dev] * n)
+    zero()
+    got = pmesh.over_composite_planes_sharded(stack, mesh)
+    counts = read(f"planes_{n}")
+    fold_err[n] = float((got - ref).abs().max())
+    fold_ms[n] = cuda_ms(
+        torch, lambda: pmesh.over_composite_planes_sharded(stack, mesh), 5)
+    log(f"mesh: over_composite_planes_sharded over {n} plane shards: "
+        f"max_abs_err {fold_err[n]:.3e} against compose_over, "
+        f"{fold_ms[n]:.3f} ms (compose_over "
+        f"{counts['over_composite_pallas']} launches in the window)")
+    check(fold_err[n] <= MESH_FOLD_TOL,
+          f"plane-sharded fold over {n} differs by {fold_err[n]}")
+  compose_ms = cuda_ms(torch, lambda: co.over_composite_pallas(stack), 5)
+  del stack, ref, got
+  torch.cuda.empty_cache()
+  mesh22 = pmesh.make_mesh(("data", "planes"), shape=(2, 2),
+                           devices=[dev] * 4)
+  poses2 = poses[:2].contiguous()
+  zero()
+  got = pmesh.render_views_planes_sharded(rgba, poses2, depths, k, mesh22,
+                                          convention=Convention.EXACT)
+  read("views_planes_2x2")
+  err22 = 0.0
+  for i in range(2):
+    warped = render.warp_planes(planes[:, None], poses2[i:i + 1], depths,
+                                k[None], convention=Convention.EXACT)
+    single = compose.over_composite(warped)[0]
+    err22 = max(err22, float((got[i] - single).abs().max()))
+    del warped, single
+  log(f"mesh: render_views_planes_sharded on a 2 x 2 mesh: max_abs_err "
+      f"{err22:.3e} against warp_planes + over_composite")
+  check(err22 <= MESH_FOLD_TOL, f"2 x 2 mesh render differs by {err22}")
+  out["fold"] = {"max_abs_err": {str(n): e for n, e in fold_err.items()},
+                 "ms": {str(n): t for n, t in fold_ms.items()},
+                 "compose_over_ms": compose_ms,
+                 "views_planes_2x2_max_abs_err": err22}
+  del got, planes, rgba
+  torch.cuda.empty_cache()
+
+  # -- (c) sharded serving ---------------------------------------------------
+  # A straggler window past a TCP SYN retry (1 s): the HTTP server's
+  # listen backlog is socketserver's 5, and 8 clients connecting at once
+  # can overflow it. A batch dispatches the moment it is full.
+  svc = RenderService(use_mesh=True, devices=[dev, dev],
+                      convention=Convention.EXACT, max_batch=8,
+                      max_wait_ms=MESH_STRAGGLER_MS, max_inflight=4,
+                      cache_bytes=4 << 30)
+  httpd = None
+  try:
+    svc.add_scene("mesh_000", *drill)
+    svc.add_scene("mesh_001", *scene1)
+    svc.warmup()
+    httpd = make_http_server(svc, port=0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    conc = [pan_pose(1.0 * i, 0.01 * i, -0.01 * i) for i in range(8)]
+    frames: list = [None] * len(conc)
+    errors: list = []
+
+    def fire(i):
+      try:
+        status, _, frames[i] = fetch(port, "mesh_000", conc[i])
+        check(status == 200, f"/render answered {status}")
+      except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+        errors.append(e)
+
+    zero()
+    d0 = svc.engine.dispatches
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(conc))]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(300)
+    counts = read("serve_concurrent")
+    dispatches = svc.engine.dispatches - d0
+    check(not errors, f"concurrent /render failed: {errors[:1]}")
+    check(dispatches == 1 and counts["render_mpi_fused"] == 2,
+          f"8 concurrent requests took {dispatches} dispatches and "
+          f"{counts['render_mpi_fused']} launches, not 1 and 2")
+    seq = [pan_pose(-2.0 * i, -0.02 * i) for i in range(2)]
+    pair: list = [None] * len(seq)
+
+    def fire_pair(i):
+      try:
+        status, _, pair[i] = fetch(port, "mesh_001", seq[i])
+        check(status == 200, f"/render answered {status}")
+      except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+        errors.append(e)
+
+    zero()
+    d0 = svc.engine.dispatches
+    threads = [threading.Thread(target=fire_pair, args=(i,))
+               for i in range(len(seq))]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(300)
+    counts = read("serve_second_scene")
+    dispatches = svc.engine.dispatches - d0
+    check(not errors, f"/render of the second scene failed: {errors[:1]}")
+    check(dispatches == 1 and counts["render_mpi_fused"] == 2,
+          f"2 requests took {dispatches} dispatches and "
+          f"{counts['render_mpi_fused']} launches, not 1 and 2")
+    frames += pair
+    for (sid, pose), frame in zip([("mesh_000", p) for p in conc]
+                                  + [("mesh_001", p) for p in seq], frames):
+      scene = svc.cache.get(sid)
+      direct = render.render_views(
+          scene.rgba_layers, torch.from_numpy(pose[None]).to(dev),
+          scene.depths, scene.intrinsics, convention=Convention.EXACT,
+          method="fused_pallas")[0].cpu().numpy()
+      check(frame.shape == (HEIGHT, WIDTH, 3) and np.array_equal(
+          frame, direct), f"served frame of {sid} differs from a direct "
+          "render")
+    _, stats = get_json(port, "/stats")
+    _, health = get_json(port, "/healthz")
+    log(f"mesh: sharded service engine {stats['engine']}; health "
+        f"{health['status']}; {len(frames)} frames bit-identical to direct "
+        "renders")
+    check(stats["engine"]["sharded"] is True
+          and stats["engine"]["devices"] == 2 == health["devices"],
+          f"/stats engine {stats['engine']}")
+    burst = [pan_pose(0.5 * i, 0.002 * i) for i in range(32)]
+
+    def run_burst():
+      futs = [svc.render_async("mesh_000", p) for p in burst]
+      for f in futs:
+        f.result(300)
+
+    zero()
+    rps = []
+    for _ in range(2):
+      t0 = time.perf_counter()
+      run_burst()
+      rps.append(len(burst) / (time.perf_counter() - t0))
+    activity = device_activity(torch, run_burst)
+    counts = read("serve_burst")
+    check(counts["render_mpi_fused"] >= 2 * 3 * len(burst) // 8,
+          f"bursts launched render_fused {counts['render_mpi_fused']} times")
+    log(f"mesh: sharded serve renders/s {rps[0]:.2f}, {rps[1]:.2f} (phase "
+        f"4, unsharded: {serve4['rps'][0]:.2f}, {serve4['rps'][1]:.2f}); "
+        f"busy share {activity['busy_share']} (phase 4: "
+        f"{serve4['activity']['busy_share']}); profiled {json.dumps(activity)}")
+    out["serve"] = {"renders_per_s": rps, "profiled_burst": activity,
+                    "phase4_renders_per_s": serve4["rps"],
+                    "phase4_busy_share": serve4["activity"]["busy_share"],
+                    "latency_ms": svc.stats()["latency_ms"]}
+  finally:
+    if httpd is not None:
+      httpd.shutdown()
+      httpd.server_close()
+    svc.close()
+  torch.cuda.empty_cache()
+
+  # The serve CLI's code path with --sharded on: every visible card.
+  port_file = os.path.join(workdir, "serve.port")
+  seen: dict = {}
+  cli_pose = pan_pose(3.0, 0.02)
+
+  def cli_client():
+    try:
+      deadline = time.monotonic() + 300
+      while not os.path.exists(port_file) and time.monotonic() < deadline:
+        time.sleep(0.05)
+      cli_port = int(open(port_file).read())
+      seen["status"], _, seen["frame"] = fetch(cli_port, "scene_000",
+                                               cli_pose)
+      _, seen["stats"] = get_json(cli_port, "/stats")
+    except Exception as e:  # noqa: BLE001 - checked on the main thread
+      seen["error"] = e
+    finally:
+      # Only ever at the serve CLI's own handler.
+      if getattr(signal.getsignal(signal.SIGTERM), "__name__",
+                 "") == "_on_signal":
+        os.kill(os.getpid(), signal.SIGTERM)
+
+  helper = threading.Thread(target=cli_client, daemon=True)
+  zero()
+  helper.start()
+  summary = cli.cmd_serve(cli.build_parser().parse_args([
+      "serve", "--device", dev.type, "--sharded", "on", "--port", "0",
+      "--port-file", port_file, "--scenes", "1", "--img-size",
+      str(MESH_CLI_IMG), "--num-planes", str(PLANES), "--convention",
+      "exact", "--max-wait-ms", "2", "--duration", "300"]))
+  helper.join(60)
+  counts = read("serve_cli")
+  check("error" not in seen, f"serve --sharded on: {seen.get('error')}")
+  check(seen.get("status") == 200, f"serve --sharded on answered {seen}")
+  check(summary["sharded"] is True
+        and summary["devices"] == (card_count if dev.type == "cuda" else 1)
+        and seen["stats"]["engine"]["sharded"] is True,
+        f"serve --sharded on: summary {summary}")
+  check(counts["render_mpi_fused"] > 0, "serve --sharded on launched nothing")
+  cli_scene = bake_scene("scene_000", *synthetic_scene(
+      "scene_000", MESH_CLI_IMG, MESH_CLI_IMG, PLANES), device=dev)
+  direct = render.render_views(
+      cli_scene.rgba_layers, torch.from_numpy(cli_pose[None]).to(dev),
+      cli_scene.depths, cli_scene.intrinsics, convention=Convention.EXACT,
+      method="fused_pallas")[0].cpu().numpy()
+  check(np.array_equal(seen["frame"], direct),
+        "serve --sharded on: the frame differs from a direct render")
+  log(f"mesh: serve --sharded on answered from a {summary['devices']}-card "
+      f"mesh, bit-identical to a direct render; rc summary "
+      f"{json.dumps({k: summary[k] for k in ('devices', 'sharded', 'requests')})}")
+  del cli_scene
+
+  # -- (d) the data-parallel train step at TrainConfig() ---------------------
+  cfg = config.TrainConfig()
+  cfg.set_precision()
+  root = os.path.join(workdir, "re10k")
+  realestate.synthesize_dataset(root, num_scenes=MESH_TRAIN_BATCH, frames=4,
+                                img_size=cfg.data.img_size, seed=0)
+  data = dataclasses.replace(cfg.data, dataset_path=root)
+  batch = next(realestate.iterate_batches(
+      data.make_dataset(rng=np.random.default_rng(0), device=dev),
+      batch_size=MESH_TRAIN_BATCH, rng=np.random.default_rng(1)))
+  vgg = cfg.make_vgg(dev)
+  mesh2 = pmesh.make_mesh(devices=[dev, dev])
+  single_step = train_loop.make_train_step(vgg, cfg.vgg_resize,
+                                           "fused_pallas")
+  step = train_loop.shard_train_step_planned(mesh2, vgg, cfg.vgg_resize)
+  kernel_names = ("render_mpi_fused", "rewarp_composite_vjp", "adjoint_warp")
+
+  def against_single(window: str):
+    """One sharded step and one single-device step from the same init on
+    the same batch: the loss diff and each parameter's max diff."""
+    single = cfg.make_train_state(0, dev)
+    _, m1 = single_step(single, batch)
+    zero()
+    rep, m2 = step(pmesh.replicate(cfg.make_train_state(0, dev), mesh2),
+                   pmesh.shard_batch(batch, mesh2))
+    counts = read(window)
+    check(all(counts[name] == 2 for name in kernel_names),
+          f"{window}: a sharded step did not launch each kernel once per "
+          f"shard: {counts}")
+    diffs = {name: float((a - b).detach().abs().max())
+             for (name, a), b in zip(rep.value.model.named_parameters(),
+                                     single.model.parameters())}
+    over = sum(int(((a - b).detach().abs() > 1e-4).sum())
+               for a, b in zip(rep.value.model.parameters(),
+                               single.model.parameters()))
+    return rep, abs(float(m2["loss"]) - float(m1["loss"])), diffs, over
+
+  # The step is held to the single-device step with cuDNN off: the
+  # convolutions then run sample by sample, so a sample's activation
+  # gradients do not depend on the batch it rides in. With cuDNN on,
+  # batch 4 and two shards of 2 take different algorithms, whose rounding
+  # (amplified by the InstanceNorm backward) flips the sign of a few
+  # gradient elements near 0, and Adam's first step, about lr * sign(g),
+  # turns each flip into 2 * lr.
+  enabled = torch.backends.cudnn.enabled
+  torch.backends.cudnn.enabled = False
+  try:
+    rep, loss_diff, diffs, over = against_single("train_step")
+  finally:
+    torch.backends.cudnn.enabled = enabled
+  worst = max(diffs, key=diffs.get)
+  log(f"mesh: one sharded step (2 shards of {MESH_TRAIN_BATCH // 2}, cuDNN "
+      f"off) against the single-device step: loss diff {loss_diff:.3e}, "
+      f"params max diff {diffs[worst]:.3e} ({worst}), {over} elements over "
+      f"1e-4")
+  check(loss_diff <= 1e-5, f"sharded loss differs by {loss_diff}")
+  check(diffs[worst] <= 1e-4, f"sharded params differ: {worst} "
+        f"{diffs[worst]}")
+
+  # What the single-device step differs from itself by under cuDNN's
+  # default algorithms, which are not deterministic.
+  again = [cfg.make_train_state(0, dev) for _ in range(2)]
+  for state in again:
+    single_step(state, batch)
+  self_diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+      again[0].model.parameters(), again[1].model.parameters()))
+  log(f"mesh: the single-device step against itself under cuDNN's default "
+      f"algorithms: params max diff {self_diff:.3e}")
+  del again
+
+  # With cuDNN on (deterministic): the sharded step equals gradient
+  # accumulation over the same two shards on one device, bit for bit.
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    rep_c, loss_diff_cudnn, diffs_cudnn, over_cudnn = against_single(
+        "train_step_cudnn")
+    shards = pmesh.shard_batch(batch, mesh2)
+    accum = cfg.make_train_state(0, dev)
+    loss_fn = train_loop.make_loss_fn(vgg, cfg.vgg_resize, "fused_pallas")
+    params = list(accum.model.parameters())
+    grads = [torch.autograd.grad(loss_fn(accum.model, shard), params)
+             for shard in shards.shards]
+    for param, g0, g1 in zip(params, *grads):
+      param.grad = (g0 + g1) / 2
+    accum.optimizer.step()
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  accum_equal = all(torch.equal(a, b) for a, b in zip(
+      rep_c.value.model.parameters(), accum.model.parameters()))
+  log(f"mesh: with cuDNN on (deterministic), sharded vs single-device step: "
+      f"loss diff {loss_diff_cudnn:.3e}, params max diff "
+      f"{max(diffs_cudnn.values()):.3e}, {over_cudnn} elements over 1e-4; "
+      f"sharded step == gradient accumulation over the same shards: "
+      f"{accum_equal}")
+  check(accum_equal, "the sharded step differs from gradient accumulation "
+        "over its shards")
+
+  def three_steps():
+    state = cfg.make_train_state(0, dev)
+    r = pmesh.replicate(state, mesh2)
+    shards = pmesh.shard_batch(batch, mesh2)
+    losses = []
+    for _ in range(3):
+      r, m = step(r, shards)
+      losses.append(m["loss"])
+    return torch.stack(losses), [p.detach().clone()
+                                 for p in r.value.model.parameters()]
+
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    zero()
+    runs = [three_steps() for _ in range(2)]
+    counts = read("train_reruns")
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  check(all(counts[name] == 2 * 3 * 2 for name in kernel_names),
+        f"3-step runs launched {counts}")
+  check(torch.equal(runs[0][0], runs[1][0])
+        and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+        "two sharded 3-step runs differ")
+  log(f"mesh: two sharded 3-step runs bit-identical, losses "
+      f"{runs[0][0].tolist()}")
+
+  single = cfg.make_train_state(0, dev)
+
+  def sharded_step():
+    step(rep, batch)
+    torch.cuda.synchronize()
+
+  def single_one():
+    single_step(single, batch)
+    torch.cuda.synchronize()
+
+  sharded_ms = host_ms(sharded_step, 5)
+  single_ms = host_ms(single_one, 5)
+  log(f"mesh: train step batch {MESH_TRAIN_BATCH} ms: sharded 2 x "
+      f"{MESH_TRAIN_BATCH // 2} {sharded_ms:.2f}, single device "
+      f"{single_ms:.2f}; phase 7 (batch 1) {step_ms7:.2f}")
+  out["train"] = {"loss_diff": loss_diff,
+                  "params_max_diff": diffs[worst], "params_worst": worst,
+                  "cudnn_loss_diff": loss_diff_cudnn,
+                  "cudnn_params_max_diff": max(diffs_cudnn.values()),
+                  "cudnn_params_over_1e-4": over_cudnn,
+                  "single_step_self_diff_cudnn_default": self_diff,
+                  "step_ms_sharded_2x2": sharded_ms,
+                  "step_ms_single_b4": single_ms,
+                  "phase7_step_ms_b1": step_ms7}
+  if card_count > 1:
+    out["cards"] = mesh_across_cards(
+        torch, [torch.device("cuda", i) for i in range(card_count)], drill,
+        cfg, batch, vgg, zero, read)
+  out["launches"] = launches
+  out["phase_s"] = time.perf_counter() - t_phase
+  log(f"mesh: phase 16 took {out['phase_s']:.1f}s")
+  return out
+
+
 def main() -> int:
   # cuBLAS picks a fixed workspace, so phase 10's products (the loss's
   # resize) are allowed under torch's deterministic mode.
@@ -4165,6 +4810,7 @@ def main() -> int:
   scene_pool = concurrent.futures.ThreadPoolExecutor(1)
   tiled_future = scene_pool.submit(tiled_scene)
   drill_future = scene_pool.submit(drill_scene)
+  mesh_future = scene_pool.submit(mesh_scene)
 
   # -- 3. kernel vs plain version ----------------------------------------
   gen = torch.Generator(device=dev).manual_seed(0)
@@ -4491,6 +5137,16 @@ def main() -> int:
       "card": card, **cluster,
       "seconds_total": time.perf_counter() - t_start}}))
 
+  # -- 16. the mesh on one card: sharded renders, fold, serving, training --
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as workdir:
+    mesh = phase16_mesh(torch, dev, drill_future.result(),
+                        mesh_future.result(), workdir,
+                        {"rps": service_rps, "activity": activity},
+                        step_times["step_ms"])
+  log(json.dumps({"times_mesh": {
+      "card": card, **mesh,
+      "seconds_total": time.perf_counter() - t_start}}))
+
   # -- result lines --------------------------------------------------------
   v1, v1p, v8 = (bwd_times[k] for k in ("v1", "v1_pan10", "v8"))
   resumed = resil["launches"]["resumed"]
@@ -4545,6 +5201,9 @@ def main() -> int:
     row["phase15_launches"] = {
         window: counts[counters[row["name"]]]
         for window, counts in cluster["launches"].items()}
+    row["phase16_launches"] = {
+        window: counts[counters[row["name"]]]
+        for window, counts in mesh["launches"].items()}
   # The compose kernel against its plain version at brownout's shapes
   # (thinned planes, 540-row targets).
   comp_row = next(row for row in rows if row["name"] == "over_composite")

@@ -535,6 +535,7 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       # SessionConfig's own validation speaks in flag terms already.
       raise SystemExit(f"bad session config: {e}") from None
   convention = Convention.EXACT if args.convention == "exact" else None
+  use_mesh = {"auto": None, "on": True, "off": False}[args.sharded]
   degraded = _degraded_mode_kwargs(args)
   resilience = None
   if args.resilience:
@@ -561,8 +562,9 @@ def cmd_serve(args: argparse.Namespace) -> dict:
               if args.tiled else None),
         asset_cache_bytes=(args.asset_cache_mb
                            if args.asset_cache_mb is not None else 256) << 20,
-        convention=convention, device=args.device, max_queue=args.max_queue,
-        resilience=resilience, tracer=tracer, session=session, **degraded)
+        convention=convention, device=args.device, use_mesh=use_mesh,
+        max_queue=args.max_queue, resilience=resilience, tracer=tracer,
+        session=session, **degraded)
   except ValueError as e:  # a method that cannot render crops/targets
     raise SystemExit(str(e)) from None
   if args.mpi_dir:
@@ -714,6 +716,8 @@ def cmd_serve(args: argparse.Namespace) -> dict:
       "cache_hit_rate": stats["cache"]["hit_rate"],
       "platform": stats["engine"]["platform"],
       "device": stats["engine"]["device"],
+      "devices": stats["engine"]["devices"],
+      "sharded": stats["engine"]["sharded"],
       "method": stats["engine"]["method"],
       "tile": svc.tile,
       "tiles": stats["tiles"],
@@ -1820,6 +1824,9 @@ def build_parser() -> argparse.ArgumentParser:
   s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                  help="render device; cuda fails without a card rather "
                       "than falling back to the CPU")
+  s.add_argument("--sharded", default="auto", choices=("auto", "on", "off"),
+                 help="shard view batches over the device mesh "
+                      "(auto: when >1 device is visible)")
   s.add_argument("--warmup", action=argparse.BooleanOptionalAction,
                  default=True,
                  help="build the kernel and render each batch bucket once "

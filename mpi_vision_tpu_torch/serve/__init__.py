@@ -2,7 +2,7 @@
 
 Bake scenes once into a byte-budgeted LRU cache in the kernel's layout
 (``cache``), coalesce concurrent same-scene pose requests into one batched
-dispatch (``scheduler`` -> ``engine``, one CUDA stream), export latency,
+dispatch (``scheduler`` -> ``engine``, one CUDA stream per card), export latency,
 throughput, batch and cache metrics (``metrics``), keep the service up
 through device trouble (``resilience``: retry, circuit breaker, watchdog,
 and a CPU fallback engine while the breaker refuses the card;

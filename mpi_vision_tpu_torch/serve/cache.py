@@ -38,6 +38,12 @@ class BakedScene:
   ladder's L2 half-resolution view of a bake, ``RenderService.
   _half_res_view``): the frame renders at ``out_hw`` through
   ``tgt_intrinsics``. ``None`` renders at the scene's own raster.
+
+  ``replicas`` holds a sharded engine's copies of ``planes``, ``depths``
+  and ``intrinsics`` on its other devices, by device. Views that share
+  the planes (``dataclasses.replace`` of a bake, as the L2 view is) share
+  it; a new bake starts empty, so a swapped or evicted bake takes its
+  replicas with it.
   """
 
   scene_id: str
@@ -48,6 +54,8 @@ class BakedScene:
   src_window: tuple | None = None
   tgt_intrinsics: torch.Tensor | None = None  # [3, 3]
   out_hw: tuple | None = None
+  replicas: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
   @property
   def rgba_layers(self) -> torch.Tensor:

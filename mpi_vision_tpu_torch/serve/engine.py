@@ -1,8 +1,8 @@
 """Device dispatch for batched pose renders — streaming by design.
 
-PyTorch counterpart of ``mpi_vision_tpu/serve/engine.py`` on one device.
-One baked scene + a ``[V, 4, 4]`` pose batch in, ``[V, H, W, 3]`` host
-images out, through ``core.render.render_views`` — by default
+PyTorch counterpart of ``mpi_vision_tpu/serve/engine.py``. One baked
+scene + a ``[V, 4, 4]`` pose batch in, ``[V, H, W, 3]`` host images out,
+through ``core.render.render_views`` — by default
 ``method="fused_pallas"``, the CUDA kernel of ``kernels/render_fused.py``,
 which renders any pose with no plan (the JAX engine cannot run its Pallas
 kernels under its jit and serves through XLA instead). Tile-granular
@@ -36,8 +36,20 @@ The dispatch API is a streaming pipeline:
 from their own threads, so every call names the engine's device and stream
 explicitly rather than relying on a thread's current ones.
 
-Batches are padded up to powers of two by repeating the last pose, and the
-padding views are sliced off at ``wait``. Per-view math is independent of
+Sharded dispatch (``use_mesh``, the JAX engine's mesh path): the batch's
+views split evenly over the engine's devices, as
+``parallel.mesh.render_views_sharded`` splits them; each shard renders on
+its device, on that device's stream, from that device's replica of the
+scene, and is read back straight into its slice of the batch's pinned
+host buffer — serving needs host frames, so no device-to-device gather.
+A device that repeats in the list (``[cuda:0, cuda:0]``) renders its
+shards one after the other on its one stream. A replica lives on the
+``BakedScene`` it copies, so it is dropped with it when the cache swaps
+or evicts that bake; the scene the cache holds is the first device's.
+
+Batches are padded up to powers of two (sharded: the device count times a
+power of two) by repeating the last pose, and the padding views are
+sliced off at ``wait``. Per-view math is independent of
 batch size — the kernel computes one pixel per thread with the planes in a
 fixed order, and the plain path is elementwise — which is what lets the
 scheduler promise bit-identical images whatever batch a request lands in.
@@ -49,6 +61,7 @@ version.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 
@@ -124,8 +137,46 @@ class InFlightBatch:
       self._engine._count_abandoned()
 
 
+class _Events:
+  """The end events of one sharded batch, one per distinct device: ready
+  when all are, synchronised one after the other."""
+
+  __slots__ = ("events",)
+
+  def __init__(self, events):
+    self.events = events
+
+  def query(self) -> bool:
+    return all(e.query() for e in self.events)
+
+  def synchronize(self) -> None:
+    for e in self.events:
+      e.synchronize()
+
+
+def engine_devices(device="cuda", devices=None) -> list[torch.device]:
+  """The devices an engine renders on: ``devices`` resolved, or, when
+  none are named, ``device`` alone — except the default ``"cuda"``, which
+  means every visible card (the JAX engine's ``jax.devices()``), the
+  current one first."""
+  if devices is not None:
+    out = [resolve_device(d) for d in devices]
+    if not out:
+      raise ValueError("devices must name at least one device")
+    if len({d.type for d in out}) > 1:
+      raise ValueError(f"devices are all cuda or all cpu, got "
+                       f"{[str(d) for d in out]}")
+    return out
+  first = resolve_device(device)
+  if first.type != "cuda" or torch.device(device).index is not None:
+    return [first]
+  return [first] + [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())
+                    if i != first.index]
+
+
 class RenderEngine:
-  """Batched render dispatch on one device.
+  """Batched render dispatch over one device or a mesh of them.
 
   Args:
     method: ``core.render.render_mpi`` method — 'fused_pallas' (the CUDA
@@ -134,7 +185,14 @@ class RenderEngine:
       crops), or the plain 'fused'/'scan'/'assoc'.
     convention: coordinate convention forwarded to the renderer.
     device: "cuda" (default) or "cpu"; with no CUDA device the engine
-      raises unless the caller passes "cpu".
+      raises unless the caller passes "cpu". Ignored when ``devices`` is
+      given.
+    use_mesh: force the sharded (True) or single-device (False) path;
+      None shards exactly when more than one device is given or visible
+      (the JAX engine's rule).
+    devices: device list override (may repeat a device: ``["cpu"] * 8``,
+      ``["cuda:0"] * 2``); default ``device`` — for ``"cuda"`` every
+      visible card.
     clock: injectable timer for the per-dispatch phase split.
     max_inflight: bound on concurrently submitted (un-waited) batches;
       ``submit`` past it blocks until a slot frees.
@@ -142,8 +200,8 @@ class RenderEngine:
 
   def __init__(self, method: str = "fused_pallas",
                convention: Convention = Convention.REF_HOMOGRAPHY,
-               device="cuda", clock=time.perf_counter,
-               max_inflight: int = 8):
+               device="cuda", use_mesh: bool | None = None, devices=None,
+               clock=time.perf_counter, max_inflight: int = 8):
     if max_inflight < 1:
       raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
     if method not in render.METHODS:
@@ -151,9 +209,17 @@ class RenderEngine:
                        f"{render.METHODS}")
     self.method = method
     self.convention = convention
-    self.device = resolve_device(device)
-    self._stream = (torch.cuda.Stream(device=self.device)
-                    if self.device.type == "cuda" else None)
+    self.devices = engine_devices(device, devices)
+    self.use_mesh = (len(self.devices) > 1 if use_mesh is None
+                     else bool(use_mesh))
+    self.device = self.devices[0]
+    # The devices a batch's shards render on, by shard; one stream per
+    # distinct card.
+    self._shard_devices = self.devices if self.use_mesh else [self.device]
+    self._streams = ({d: torch.cuda.Stream(device=d)
+                      for d in dict.fromkeys(self._shard_devices)}
+                     if self.device.type == "cuda" else None)
+    self._replica_lock = threading.Lock()
     self._clock = clock
     self.max_inflight = int(max_inflight)
     self._slots = threading.Semaphore(self.max_inflight)
@@ -166,15 +232,14 @@ class RenderEngine:
     # prefer the per-handle ``InFlightBatch.timings``.
     self.last_timings = {"h2d_s": 0.0, "compute_s": 0.0, "readback_s": 0.0}
 
-  @property
-  def devices(self) -> list[torch.device]:
-    return [self.device]
-
   def batch_bucket(self, v: int) -> int:
     """Padded batch size dispatched for a logical batch of ``v``."""
     if v <= 0:
       raise ValueError(f"batch must be non-empty, got {v}")
-    return _next_pow2(v)
+    if not self.use_mesh:
+      return _next_pow2(v)
+    n = len(self.devices)
+    return n * _next_pow2(-(-v // n))
 
   @property
   def inflight(self) -> int:
@@ -210,6 +275,26 @@ class RenderEngine:
                                scene.intrinsics, convention=self.convention,
                                method=self.method, **kw)
 
+  def _replica(self, scene: BakedScene, dev: torch.device) -> BakedScene:
+    """``scene`` on ``dev``: itself on its own device, else a view of the
+    copies ``scene.replicas`` holds for ``dev`` (made on first use)."""
+    if dev == scene.device:
+      return scene
+    with self._replica_lock:
+      copies = scene.replicas.get(dev)
+      if copies is None:
+        copies = tuple(t.to(dev) for t in (scene.planes, scene.depths,
+                                           scene.intrinsics))
+        if dev.type == "cuda":
+          torch.cuda.synchronize(dev)
+        scene.replicas[dev] = copies
+    planes, depths, intrinsics = copies
+    return dataclasses.replace(
+        scene, planes=planes, depths=depths, intrinsics=intrinsics,
+        tgt_intrinsics=(None if scene.tgt_intrinsics is None
+                        else scene.tgt_intrinsics.to(dev)),
+        replicas={})
+
   def submit(self, scene: BakedScene, poses) -> InFlightBatch:
     """Dispatch ``poses [V, 4, 4]`` against ``scene`` without waiting.
 
@@ -227,38 +312,66 @@ class RenderEngine:
     if bucket != v:
       poses = np.concatenate(
           [poses, np.repeat(poses[-1:], bucket - v, axis=0)])
+    # Shard i renders views [i * k, (i + 1) * k) on its device.
+    shards = list(enumerate(self._shard_devices))
+    k = bucket // len(shards)
     self._acquire_slot()
     try:
       t0 = self._clock()
       marks = None
-      if self._stream is None:
+      if self._streams is None:
         t1 = self._clock()
-        out, event = self._render(scene, torch.tensor(poses)), None
+        poses_t = torch.tensor(poses)
+        frames = [self._render(self._replica(scene, dev),
+                               poses_t[i * k:(i + 1) * k])
+                  for i, dev in shards]
+        out, event = (frames[0] if len(frames) == 1
+                      else torch.cat(frames)), None
       else:
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-          marks = tuple(torch.cuda.Event(enable_timing=True)
-                        for _ in range(4))
-          host_poses = torch.empty(poses.shape, dtype=torch.float32,
-                                   pin_memory=True)
-          host_poses.numpy()[...] = poses
-          marks[0].record(self._stream)
-          poses_dev = host_poses.to(self.device, non_blocking=True)
-          marks[1].record(self._stream)
-          t1 = self._clock()
-          # The cache may evict the scene while this batch still reads it
-          # on the engine's stream: keep its memory from being reused
-          # until the stream has passed this point.
-          for t in (scene.planes, scene.depths, scene.intrinsics,
-                    scene.tgt_intrinsics):
-            if t is not None:
-              t.record_stream(self._stream)
-          frames = self._render(scene, poses_dev)
-          marks[2].record(self._stream)
-          out = torch.empty(frames.shape, dtype=frames.dtype,
-                            pin_memory=True)
-          out.copy_(frames, non_blocking=True)
-          marks[3].record(self._stream)
-          event = marks[3]
+        first = self._streams[self.device]
+        marks = tuple(torch.cuda.Event(enable_timing=True)
+                      for _ in range(4))
+        host_poses = torch.empty(poses.shape, dtype=torch.float32,
+                                 pin_memory=True)
+        host_poses.numpy()[...] = poses
+        # Uploads, renders and readbacks are each enqueued for every shard
+        # before the next stage, so one card's stream runs them in stage
+        # order and the timing marks on the first card bracket each stage.
+        marks[0].record(first)
+        poses_dev = []
+        for i, dev in shards:
+          with torch.cuda.device(dev), torch.cuda.stream(self._streams[dev]):
+            poses_dev.append(host_poses[i * k:(i + 1) * k].to(
+                dev, non_blocking=True))
+        marks[1].record(first)
+        t1 = self._clock()
+        frames = []
+        for i, dev in shards:
+          stream = self._streams[dev]
+          with torch.cuda.device(dev), torch.cuda.stream(stream):
+            rep = self._replica(scene, dev)
+            # The cache may evict the scene while this batch still reads
+            # it on the engine's stream: keep its memory from being reused
+            # until the stream has passed this point.
+            for t in (rep.planes, rep.depths, rep.intrinsics,
+                      rep.tgt_intrinsics):
+              if t is not None:
+                t.record_stream(stream)
+            frames.append(self._render(rep, poses_dev[i]))
+        marks[2].record(first)
+        out = torch.empty((bucket,) + tuple(frames[0].shape[1:]),
+                          dtype=frames[0].dtype, pin_memory=True)
+        for i, dev in shards:
+          with torch.cuda.device(dev), torch.cuda.stream(self._streams[dev]):
+            out[i * k:(i + 1) * k].copy_(frames[i], non_blocking=True)
+        marks[3].record(first)
+        ends = [marks[3]]
+        for dev, stream in self._streams.items():
+          if dev != self.device:
+            end = torch.cuda.Event()
+            end.record(stream)
+            ends.append(end)
+        event = ends[0] if len(ends) == 1 else _Events(ends)
     except BaseException:
       self._release_slot()
       raise
@@ -334,16 +447,16 @@ class RenderEngine:
     composites through ``plain_composite``), so a fallback frame is the
     kernel's function of the same inputs."""
     return RenderEngine(method=self.method, convention=self.convention,
-                        device="cpu", clock=self._clock,
+                        device="cpu", use_mesh=False, clock=self._clock,
                         max_inflight=self.max_inflight)
 
   def describe(self) -> dict:
     return {
-        "devices": 1,
+        "devices": len(self.devices),
         "platform": self.platform,
         "device": (torch.cuda.get_device_name(self.device)
                    if self.device.type == "cuda" else "cpu"),
-        "sharded": False,
+        "sharded": self.use_mesh,
         "method": self.method,
         "convention": self.convention.value,
         "dispatches": self.dispatches,

@@ -223,6 +223,10 @@ class FaultyEngine:
     return self.inner.convention
 
   @property
+  def use_mesh(self):
+    return self.inner.use_mesh
+
+  @property
   def device(self):
     return self.inner.device
 

@@ -256,6 +256,10 @@ class RenderService:
       convention's axis swap is only benign on square frames.
     device: "cuda" (default) or "cpu"; with no CUDA device the service
       raises unless the caller passes "cpu". Ignored with ``engine``.
+    use_mesh / devices: the engine's mesh routing (engine.py): None
+      shards each batch's views over the devices exactly when more than
+      one is given or visible; ``devices`` may repeat a device. Ignored
+      with ``engine``.
     max_queue: pending-request cap; beyond it requests shed with 503.
     engine: explicit engine override (tests).
     resilience: retry/breaker/watchdog knobs (resilience.py); None turns
@@ -340,6 +344,7 @@ class RenderService:
                tile: "int | str | None" = None,
                asset_cache_bytes: int = 256 << 20,
                convention: "Convention | None" = None, device="cuda",
+               use_mesh: bool | None = None, devices=None,
                max_queue: int = 1024, engine: RenderEngine | None = None,
                resilience: ResilienceConfig | None = ResilienceConfig(),
                cpu_fallback: str = "off", fallback_engine=None,
@@ -426,7 +431,7 @@ class RenderService:
     engine_window = max_inflight_cap if adaptive_inflight else max_inflight
     engine_kw = {} if convention is None else {"convention": convention}
     self.engine = engine if engine is not None else RenderEngine(
-        method=method, device=device,
+        method=method, device=device, use_mesh=use_mesh, devices=devices,
         max_inflight=max(8, 2 * engine_window), **engine_kw)
     self.cache = cache_mod.SceneCache(byte_budget=cache_bytes)
     self.metrics = ServeMetrics()

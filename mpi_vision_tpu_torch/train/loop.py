@@ -11,6 +11,11 @@ read the same shape of code.
     ``method="fused_pallas"`` renders through the CUDA kernels, forward and
     backward, ``"fused"`` through the plain per-plane loop.
   * ``make_train_step`` / ``make_eval_step`` / ``evaluate`` / ``fit``.
+  * ``shard_train_step`` / ``shard_train_step_planned`` — the data-parallel
+    step over a mesh (``parallel/mesh.py``): each batch shard's loss and
+    gradients on its own device, summed in shard order on the first and
+    divided by the shard count (the JAX ``pmean``), one Adam step on the
+    master model, the other devices' replicas refreshed from it.
   * ``lr_find`` — the reference's learning-rate sweep (cell 14).
   * ``fit_resumable`` — the crash-safe epoch driver over a
     ``ckpt.CheckpointStore``: atomic periodic saves, SIGTERM preemption
@@ -23,8 +28,6 @@ read the same shape of code.
 The LR lives in ``optimizer.param_groups``, so it is always adjustable
 (the JAX package needs ``mutable_lr=True`` for that) and rides in every
 checkpoint as a float64 leaf.
-
-Not ported yet: the sharded steps.
 """
 
 from __future__ import annotations
@@ -168,6 +171,92 @@ def fit(state: TrainState, batches: Iterable[Batch], step=None):
   if not losses:
     return state, []
   return state, torch.stack(losses).cpu().tolist()
+
+
+def shard_train_step(mesh, vgg: vgg_lib.VGG16Features | None = None,
+                     resize: int | None = 224, axis: str = "data",
+                     method: str = "fused"):
+  """The train step over a mesh: batch split over ``axis``, the model
+  replicated (the JAX package's data-parallel ``shard_train_step``).
+
+  Returns ``step(state, batch) -> (state, {"loss"})``. Place ``state``
+  with ``parallel.mesh.replicate(state, mesh)`` and the batch with
+  ``shard_batch(batch, mesh)``, as in the JAX package; a plain
+  ``TrainState`` or batch dict is placed by the step itself. Each shard's
+  loss and gradients come from its own device's replica; both are summed
+  in shard order on the mesh's first device and divided by the shard
+  count (the JAX ``pmean``: the loss means over the batch, so that is the
+  whole batch's gradient); one Adam step updates the master model, and
+  the replicas on other devices are refreshed from it. No atomics and a
+  fixed order: a step run twice is bit-identical. The axis size must
+  divide the batch.
+  """
+  from mpi_vision_tpu_torch.parallel import mesh as pmesh
+
+  n = mesh.shape[axis]
+  devs = mesh.axis_devices(axis)
+  first = devs[0]
+  # The VGG features live on every device a shard runs on.
+  vggs = None if vgg is None else pmesh.replicate(vgg, mesh)
+  loss_fns = {dev: make_loss_fn(None if vggs is None else vggs.on(dev),
+                                resize, method)
+              for dev in mesh.distinct_devices}
+
+  def step(state, batch):
+    rep = (state if isinstance(state, pmesh.Replicated)
+           else pmesh.replicate(state, mesh))
+    if isinstance(batch, pmesh.Sharded):
+      if batch.mesh is not mesh or batch.axis != axis:
+        raise ValueError("the batch is sharded over another mesh or axis")
+      sharded = batch
+    else:
+      sharded = pmesh.shard_batch(batch, mesh, axis)
+    if not sharded.specs["ref_img"]:
+      b = sharded.shards[0]["ref_img"].shape[0]
+      raise ValueError(f"batch {b} not divisible by mesh axis {axis}={n}")
+    master = rep.value
+    losses, grads = [], []
+    for i, dev in enumerate(devs):
+      model = rep.on(dev).model
+      with pmesh._on(dev):
+        loss = loss_fns[dev](model, sharded.shards[i])
+        grads.append(torch.autograd.grad(loss, list(model.parameters()),
+                                         allow_unused=True))
+      losses.append(loss.detach())
+    with torch.no_grad():
+      total = losses[0].to(first)
+      for loss in losses[1:]:
+        total = total + loss.to(first)
+      for j, param in enumerate(master.model.parameters()):
+        shard_grads = [g[j] for g in grads]
+        if all(g is None for g in shard_grads):
+          param.grad = None
+          continue
+        acc = None
+        for g in shard_grads:
+          g = torch.zeros_like(param) if g is None else g.to(first)
+          acc = g if acc is None else acc + g
+        param.grad = acc / n
+    master.optimizer.step()
+    master.optimizer.zero_grad(set_to_none=True)
+    master.step += 1
+    if len(rep.copies) > 1:
+      rep.refresh()
+    out = rep if isinstance(state, pmesh.Replicated) else master
+    return out, {"loss": total / n}
+
+  return step
+
+
+def shard_train_step_planned(mesh, vgg: vgg_lib.VGG16Features | None = None,
+                             resize: int | None = 224, axis: str = "data"):
+  """``shard_train_step`` with the render in the loss through the CUDA
+  kernels, forward and backward, on every shard (``method="fused_pallas"``;
+  their plain versions on the CPU). The JAX package plans each batch's
+  Pallas kernels and keeps an XLA fallback for poses outside their
+  envelope; ``render_fused.cu`` covers every pose, so neither has a
+  counterpart here."""
+  return shard_train_step(mesh, vgg, resize, axis, method="fused_pallas")
 
 
 def lr_find(state: TrainState, batches,
