@@ -29,14 +29,23 @@ from typing import Callable
 import torch
 
 
+# The profiler range: ``record_function``'s C++ counterpart where this
+# PyTorch has it, ~1 us a range on a host CPU against ~14 us (the serving
+# stack's host spans open one around every frame it copies). Its ranges
+# show as ``cpu_op`` events where ``record_function``'s are
+# ``user_annotation``; both sit on their thread's lane.
+_profiler_range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                          torch.profiler.record_function)
+
+
 @contextlib.contextmanager
 def named_scope(name: str):
-  """NVTX range + ``record_function`` range named ``name``."""
+  """NVTX range + profiler (``record_function``) range named ``name``."""
   nvtx = torch.cuda.is_available()
   if nvtx:
     torch.cuda.nvtx.range_push(name)
   try:
-    with torch.profiler.record_function(name):
+    with _profiler_range(name):
       yield
   finally:
     if nvtx:

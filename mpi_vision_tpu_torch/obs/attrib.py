@@ -6,8 +6,8 @@ The stack can say *that* the device is busy (``phase_seconds``), *that*
 the queue is deep, and *that* an SLO is burning — but not **who** is
 responsible. This module answers that: every completed request
 accumulates its device phase-seconds (its share of the flight's
-``last_timings`` split), queue-wait, response bytes, and cache/edge/
-tile contribution into a bounded ``(scene_id x request-class x
+``InFlightBatch.timings`` split), queue-wait, response bytes, and
+cache/edge/tile contribution into a bounded ``(scene_id x request-class x
 brownout-level)`` cell. The two ROADMAP follow-ons that need the answer
 — per-scene brownout ladders and the evidence-driven autoscaler — read
 it from here; the incident recorder (``obs/incident.py``) freezes the

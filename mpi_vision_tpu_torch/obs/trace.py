@@ -22,6 +22,38 @@ no-op method calls.
 dispatch (one set of attempt/bake/h2d/compute/readback timings) across
 many requests' traces, so the dispatcher records shared spans once and
 ``replay``\\ s them onto every batch member's trace.
+
+Host spans (``Tracer.span``) record what a *thread* was doing, which no
+request's trace can say: a dispatcher waiting for work, a completer
+blocked on a device event, a frame being copied. Each is ``"work"`` (the
+thread was computing) or ``"wait"`` (it was blocked). The served path
+records:
+
+  ================================  ====  ================================
+  name                              kind  where
+  ================================  ====  ================================
+  ``scheduler/await_requests``      wait  dispatcher, queue empty
+  ``scheduler/await_slot``          wait  dispatcher, pipeline full
+  ``scheduler/assembly``            wait  the straggler window
+                                          (``batch_assembly``'s edges)
+  ``engine/submit``                 work  pose pinning, launches, the
+                                          pinned output buffer
+  ``engine/event_wait``             wait  completer, the flight's event
+                                          synchronise
+  ``scheduler/frame_copy``          work  one frame's copy out of the
+                                          flight's buffer
+  ``scheduler/resolve``             work  the rest of a flight's tail:
+                                          metrics, span replay, futures,
+                                          trace finish
+  ================================  ====  ================================
+
+A span opened inside another on the same thread takes its time out of the
+outer one: the outer span's total is its own time, and the host ring
+holds it as the pieces between its inner spans (``scheduler/resolve``
+minus its ``scheduler/frame_copy`` spans). ``host_totals`` sums seconds
+and counts by name; ``host_spans`` returns the ring on the wall clock's
+nanoseconds (``time.time_ns``'s base, which ``torch.profiler`` stamps
+too), so the spans line up with a device trace of the same window.
 """
 
 from __future__ import annotations
@@ -31,6 +63,8 @@ import threading
 import time
 import uuid
 from collections import deque
+
+HOST_SPAN_KINDS = ("work", "wait")
 
 
 def new_trace_id() -> str:
@@ -65,6 +99,68 @@ class _NullTrace:
 
 
 NULL_TRACE = _NullTrace()
+
+
+class _NullSpan:
+  """The disabled host span: one shared object whose ``with`` does
+  nothing (no clock read, no lock, no allocation)."""
+
+  __slots__ = ()
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, *exc):
+    return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def _named_scope(name: str):
+  """``debug.named_scope``, imported at the first recorded span so that
+  importing this module does not import torch."""
+  from mpi_vision_tpu_torch import debug
+
+  return debug.named_scope(name)
+
+
+class _HostSpan:
+  """One recorded host span (``Tracer.span`` when enabled)."""
+
+  __slots__ = ("_tracer", "name", "kind", "_range", "_stack", "_t0",
+               "_seg0", "_inner_s")
+
+  def __init__(self, tracer: "Tracer", name: str, kind: str):
+    self._tracer = tracer
+    self.name = name
+    self.kind = kind
+    self._inner_s = 0.0
+
+  def __enter__(self):
+    tracer = self._tracer
+    self._range = tracer._scope(self.name)
+    self._range.__enter__()
+    stack = self._stack = tracer._stack()
+    now = tracer._clock()
+    if stack:  # the outer span's piece ends where this one starts
+      tracer._cut(stack[-1], now)
+    stack.append(self)
+    self._t0 = self._seg0 = now
+    return self
+
+  def __exit__(self, *exc):
+    tracer = self._tracer
+    t1 = tracer._clock()
+    stack = self._stack
+    stack.pop()
+    tracer._finish_span(self, t1)
+    if stack:
+      outer = stack[-1]
+      outer._seg0 = t1
+      outer._inner_s += t1 - self._t0
+    self._range.__exit__(*exc)
+    return False
 
 
 class Trace:
@@ -170,27 +266,43 @@ class Trace:
 
 
 class Tracer:
-  """Trace factory + finished-trace sinks (emit / ring / slowest-N).
+  """Trace factory + finished-trace sinks (emit / ring / slowest-N), and
+  the host spans of the threads that serve (module docstring).
 
   Args:
     enabled: False routes ``start_trace`` to the shared ``NULL_TRACE``
-      singleton — the zero-overhead off switch.
+      singleton and ``span`` to a shared no-op — the zero-overhead off
+      switch.
     clock: injectable monotonic clock; share it with the scheduler so
       spans and deadlines agree.
     emit: optional callable receiving one JSON line per finished trace.
     ring: finished traces retained for ``/debug/traces`` (FIFO).
     slow_keep: slowest-N exemplars retained past ring eviction.
+    host_ring: host-span pieces retained for ``host_spans`` (FIFO; the
+      ones pushed out are counted in ``host_dropped``).
+    wall_clock: nanoseconds on the device trace's base; read beside
+      ``clock`` at construction and at ``reset`` to map host spans onto
+      it.
+    scope: ``name -> context manager`` entered around every host span;
+      default ``debug.named_scope`` (an NVTX and a profiler range, so
+      the span shows on its thread's lane in a profile).
   """
 
   def __init__(self, enabled: bool = True, clock=time.monotonic,
-               emit=None, ring: int = 256, slow_keep: int = 16):
+               emit=None, ring: int = 256, slow_keep: int = 16,
+               host_ring: int = 1 << 17, wall_clock=time.time_ns,
+               scope=_named_scope):
     if ring < 1:
       raise ValueError(f"ring must be >= 1, got {ring}")
     if slow_keep < 0:
       raise ValueError(f"slow_keep must be >= 0, got {slow_keep}")
+    if host_ring < 1:
+      raise ValueError(f"host_ring must be >= 1, got {host_ring}")
     self.enabled = bool(enabled)
     self.emit = emit
     self._clock = clock
+    self._wall_clock = wall_clock
+    self._scope = scope
     self._lock = threading.Lock()
     self._ring: deque = deque(maxlen=ring)
     self._slow_keep = slow_keep
@@ -199,6 +311,85 @@ class Tracer:
     self.started = 0
     self.finished = 0
     self.emit_errors = 0
+    self._local = threading.local()
+    self._host_ring: deque = deque(maxlen=host_ring)
+    self._host_totals: dict[str, list] = {}
+    self.host_dropped = 0
+    self._anchor = self._read_anchor()
+
+  def _read_anchor(self) -> tuple | None:
+    """``(clock, wall ns)`` read together; None when disabled, which
+    reads no clock."""
+    if not self.enabled:
+      return None
+    return self._clock(), self._wall_clock()
+
+  def span(self, name: str, kind: str = "work"):
+    """A host span: ``with tracer.span("engine/submit"): ...``. ``kind``
+    is ``"work"`` or ``"wait"``. Disabled: the shared no-op object."""
+    if not self.enabled:
+      return _NULL_SPAN
+    if kind not in HOST_SPAN_KINDS:
+      raise ValueError(f"kind must be one of {HOST_SPAN_KINDS}, got "
+                       f"{kind!r}")
+    return _HostSpan(self, name, kind)
+
+  def _stack(self) -> list:
+    """This thread's open host spans, innermost last."""
+    stack = getattr(self._local, "stack", None)
+    if stack is None:
+      stack = self._local.stack = []
+    return stack
+
+  def _cut(self, span: _HostSpan, t1: float) -> None:
+    """End ``span``'s current piece at ``t1``: an inner span opens."""
+    with self._lock:
+      self._piece(span, span._seg0, t1)
+
+  def _piece(self, span: _HostSpan, t0: float, t1: float) -> None:
+    """One piece of ``span`` into the ring, from the last reset on (the
+    lock held)."""
+    t0 = max(t0, self._anchor[0])
+    if t1 > t0:
+      if len(self._host_ring) == self._host_ring.maxlen:
+        self.host_dropped += 1
+      self._host_ring.append((threading.current_thread().name, span.name,
+                              span.kind, t0, t1))
+
+  def _finish_span(self, span: _HostSpan, t1: float) -> None:
+    """Close ``span``: its last piece into the ring, its own time (less
+    its inner spans') and one count into the totals. A span open across
+    ``reset`` counts from the reset on."""
+    with self._lock:
+      self._piece(span, span._seg0, t1)
+      total = self._host_totals.get(span.name)
+      if total is None:
+        total = self._host_totals[span.name] = [0.0, 0]
+      start = max(span._t0, self._anchor[0])
+      total[0] += max(t1 - start - span._inner_s, 0.0)
+      total[1] += 1
+
+  def host_totals(self) -> dict:
+    """``{name: {"s": seconds, "n": spans}}`` since construction or the
+    last ``reset``."""
+    with self._lock:
+      return self._totals_locked()
+
+  def _totals_locked(self) -> dict:
+    return {name: {"s": s, "n": n}
+            for name, (s, n) in sorted(self._host_totals.items())}
+
+  def host_spans(self) -> list[tuple]:
+    """The host ring as ``(thread, name, kind, t0_ns, t1_ns)`` on the
+    wall clock's nanoseconds, oldest first."""
+    with self._lock:
+      if self._anchor is None:
+        return []
+      mono0, wall0 = self._anchor
+      ring = list(self._host_ring)
+    return [(thread, name, kind, wall0 + round((t0 - mono0) * 1e9),
+             wall0 + round((t1 - mono0) * 1e9))
+            for thread, name, kind, t0, t1 in ring]
 
   def start_trace(self, name: str, trace_id: str | None = None, **attrs):
     """A new ``Trace`` — or ``NULL_TRACE`` when tracing is disabled.
@@ -239,7 +430,9 @@ class Tracer:
           self.emit_errors += 1
 
   def snapshot(self, recent: int = 32) -> dict:
-    """The ``/debug/traces`` payload: counters + recent + slowest."""
+    """The ``/debug/traces`` payload: counters + recent + slowest, and
+    the host spans' totals by name (``host_totals``) with the ring's
+    drops."""
     with self._lock:
       return {
           "enabled": self.enabled,
@@ -249,6 +442,8 @@ class Tracer:
           "ring_size": self._ring.maxlen,
           "recent": list(self._ring)[-recent:] if recent > 0 else [],
           "slowest": [r for _, _, r in reversed(self._slowest)],
+          "host_totals": self._totals_locked(),
+          "host_dropped": self.host_dropped,
       }
 
   def find(self, trace_id: str) -> list[dict]:
@@ -268,14 +463,20 @@ class Tracer:
       return out
 
   def reset(self) -> None:
-    """Drop recorded traces and counters (load generators call this after
-    warm-up, mirroring ``ServeMetrics.reset``)."""
+    """Drop recorded traces, host spans and counters, and read the clocks'
+    anchor again (load generators call this after warm-up, as the window
+    opens, mirroring ``ServeMetrics.reset``)."""
+    anchor = self._read_anchor()
     with self._lock:
       self.started = 0
       self.finished = 0
       self.emit_errors = 0
       self._ring.clear()
       self._slowest = []
+      self._host_ring.clear()
+      self._host_totals = {}
+      self.host_dropped = 0
+      self._anchor = anchor
 
 
 NULL_TRACER = Tracer(enabled=False)

@@ -71,6 +71,7 @@ import torch
 from mpi_vision_tpu_torch.core import render
 from mpi_vision_tpu_torch.core.sampling import Convention
 from mpi_vision_tpu_torch.device import resolve_device
+from mpi_vision_tpu_torch.obs.trace import NULL_TRACER
 from mpi_vision_tpu_torch.serve.cache import BakedScene
 
 
@@ -196,12 +197,16 @@ class RenderEngine:
     clock: injectable timer for the per-dispatch phase split.
     max_inflight: bound on concurrently submitted (un-waited) batches;
       ``submit`` past it blocks until a slot frees.
+    tracer: records the host spans ``engine/submit`` (after the window
+      slot is held) and ``engine/event_wait`` (``obs.trace``); the default
+      no-op tracer records nothing.
   """
 
   def __init__(self, method: str = "fused_pallas",
                convention: Convention = Convention.REF_HOMOGRAPHY,
                device="cuda", use_mesh: bool | None = None, devices=None,
-               clock=time.perf_counter, max_inflight: int = 8):
+               clock=time.perf_counter, max_inflight: int = 8,
+               tracer=NULL_TRACER):
     if max_inflight < 1:
       raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
     if method not in render.METHODS:
@@ -225,12 +230,9 @@ class RenderEngine:
     self._slots = threading.Semaphore(self.max_inflight)
     self._inflight_lock = threading.Lock()
     self._inflight = 0
+    self.tracer = tracer
     self.dispatches = 0
     self.abandoned = 0
-    self.last_render_s = 0.0
-    # Phase split of the last *waited* dispatch; with overlapped batches
-    # prefer the per-handle ``InFlightBatch.timings``.
-    self.last_timings = {"h2d_s": 0.0, "compute_s": 0.0, "readback_s": 0.0}
 
   def batch_bucket(self, v: int) -> int:
     """Padded batch size dispatched for a logical batch of ``v``."""
@@ -317,61 +319,64 @@ class RenderEngine:
     k = bucket // len(shards)
     self._acquire_slot()
     try:
-      t0 = self._clock()
-      marks = None
-      if self._streams is None:
-        t1 = self._clock()
-        poses_t = torch.tensor(poses)
-        frames = [self._render(self._replica(scene, dev),
-                               poses_t[i * k:(i + 1) * k])
-                  for i, dev in shards]
-        out, event = (frames[0] if len(frames) == 1
-                      else torch.cat(frames)), None
-      else:
-        first = self._streams[self.device]
-        marks = tuple(torch.cuda.Event(enable_timing=True)
-                      for _ in range(4))
-        host_poses = torch.empty(poses.shape, dtype=torch.float32,
-                                 pin_memory=True)
-        host_poses.numpy()[...] = poses
-        # Uploads, renders and readbacks are each enqueued for every shard
-        # before the next stage, so one card's stream runs them in stage
-        # order and the timing marks on the first card bracket each stage.
-        marks[0].record(first)
-        poses_dev = []
-        for i, dev in shards:
-          with torch.cuda.device(dev), torch.cuda.stream(self._streams[dev]):
-            poses_dev.append(host_poses[i * k:(i + 1) * k].to(
-                dev, non_blocking=True))
-        marks[1].record(first)
-        t1 = self._clock()
-        frames = []
-        for i, dev in shards:
-          stream = self._streams[dev]
-          with torch.cuda.device(dev), torch.cuda.stream(stream):
-            rep = self._replica(scene, dev)
-            # The cache may evict the scene while this batch still reads
-            # it on the engine's stream: keep its memory from being reused
-            # until the stream has passed this point.
-            for t in (rep.planes, rep.depths, rep.intrinsics,
-                      rep.tgt_intrinsics):
-              if t is not None:
-                t.record_stream(stream)
-            frames.append(self._render(rep, poses_dev[i]))
-        marks[2].record(first)
-        out = torch.empty((bucket,) + tuple(frames[0].shape[1:]),
-                          dtype=frames[0].dtype, pin_memory=True)
-        for i, dev in shards:
-          with torch.cuda.device(dev), torch.cuda.stream(self._streams[dev]):
-            out[i * k:(i + 1) * k].copy_(frames[i], non_blocking=True)
-        marks[3].record(first)
-        ends = [marks[3]]
-        for dev, stream in self._streams.items():
-          if dev != self.device:
-            end = torch.cuda.Event()
-            end.record(stream)
-            ends.append(end)
-        event = ends[0] if len(ends) == 1 else _Events(ends)
+      with self.tracer.span("engine/submit"):
+        t0 = self._clock()
+        marks = None
+        if self._streams is None:
+          t1 = self._clock()
+          poses_t = torch.tensor(poses)
+          frames = [self._render(self._replica(scene, dev),
+                                 poses_t[i * k:(i + 1) * k])
+                    for i, dev in shards]
+          out, event = (frames[0] if len(frames) == 1
+                        else torch.cat(frames)), None
+        else:
+          first = self._streams[self.device]
+          marks = tuple(torch.cuda.Event(enable_timing=True)
+                        for _ in range(4))
+          host_poses = torch.empty(poses.shape, dtype=torch.float32,
+                                   pin_memory=True)
+          host_poses.numpy()[...] = poses
+          # Uploads, renders and readbacks are each enqueued for every shard
+          # before the next stage, so one card's stream runs them in stage
+          # order and the timing marks on the first card bracket each stage.
+          marks[0].record(first)
+          poses_dev = []
+          for i, dev in shards:
+            with torch.cuda.device(dev), \
+                torch.cuda.stream(self._streams[dev]):
+              poses_dev.append(host_poses[i * k:(i + 1) * k].to(
+                  dev, non_blocking=True))
+          marks[1].record(first)
+          t1 = self._clock()
+          frames = []
+          for i, dev in shards:
+            stream = self._streams[dev]
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+              rep = self._replica(scene, dev)
+              # The cache may evict the scene while this batch still reads
+              # it on the engine's stream: keep its memory from being reused
+              # until the stream has passed this point.
+              for t in (rep.planes, rep.depths, rep.intrinsics,
+                        rep.tgt_intrinsics):
+                if t is not None:
+                  t.record_stream(stream)
+              frames.append(self._render(rep, poses_dev[i]))
+          marks[2].record(first)
+          out = torch.empty((bucket,) + tuple(frames[0].shape[1:]),
+                            dtype=frames[0].dtype, pin_memory=True)
+          for i, dev in shards:
+            with torch.cuda.device(dev), \
+                torch.cuda.stream(self._streams[dev]):
+              out[i * k:(i + 1) * k].copy_(frames[i], non_blocking=True)
+          marks[3].record(first)
+          ends = [marks[3]]
+          for dev, stream in self._streams.items():
+            if dev != self.device:
+              end = torch.cuda.Event()
+              end.record(stream)
+              ends.append(end)
+          event = ends[0] if len(ends) == 1 else _Events(ends)
     except BaseException:
       self._release_slot()
       raise
@@ -390,8 +395,9 @@ class RenderEngine:
     Device errors from the async dispatch raise here.
     """
     try:
-      if handle.event is not None:
-        handle.event.synchronize()
+      with self.tracer.span("engine/event_wait", "wait"):
+        if handle.event is not None:
+          handle.event.synchronize()
       t1 = self._clock()
       host = handle.out.numpy()
       t2 = self._clock()
@@ -416,8 +422,6 @@ class RenderEngine:
                            0.0),
           "readback_s": t2 - t1,
       }
-    self.last_render_s = t2 - handle.t_submit
-    self.last_timings = dict(handle.timings)
     return host[:handle.views]
 
   def abandon(self, handle: InFlightBatch) -> None:
@@ -448,7 +452,7 @@ class RenderEngine:
     kernel's function of the same inputs."""
     return RenderEngine(method=self.method, convention=self.convention,
                         device="cpu", use_mesh=False, clock=self._clock,
-                        max_inflight=self.max_inflight)
+                        max_inflight=self.max_inflight, tracer=self.tracer)
 
   def describe(self) -> dict:
     return {

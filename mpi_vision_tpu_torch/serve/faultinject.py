@@ -235,10 +235,6 @@ class FaultyEngine:
     return self.inner.dispatches
 
   @property
-  def last_timings(self):
-    return self.inner.last_timings
-
-  @property
   def platform(self):
     return self.inner.platform
 

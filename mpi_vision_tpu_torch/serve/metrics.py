@@ -80,7 +80,7 @@ class ServeMetrics:
       self.requests = 0
       self.batches = 0
       self.render_seconds = 0.0
-      # Device-phase split of render_seconds (engine.last_timings):
+      # Device-phase split of render_seconds (InFlightBatch.timings):
       # host->device transfer / compute / device->host readback.
       self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0}
       # Failure accounting: without these, failed renders vanish from the

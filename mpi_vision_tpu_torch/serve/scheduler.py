@@ -56,7 +56,7 @@ from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
 
 import numpy as np
 
-from mpi_vision_tpu_torch.obs.trace import NULL_TRACE, SpanRecorder
+from mpi_vision_tpu_torch.obs.trace import NULL_TRACE, NULL_TRACER, SpanRecorder
 from mpi_vision_tpu_torch.serve.engine import RenderEngine
 from mpi_vision_tpu_torch.serve.metrics import ServeMetrics
 from mpi_vision_tpu_torch.serve.resilience import (
@@ -166,6 +166,11 @@ class MicroBatcher:
     clock: injectable monotonic clock (deadlines, latencies, span edges
       all read it — share one instance with the tracer and the resilient
       executor so every timestamp is on one base).
+    tracer: records the dispatcher's and the completers' host spans
+      (``scheduler/await_requests``, ``scheduler/await_slot``,
+      ``scheduler/assembly``, ``scheduler/frame_copy``,
+      ``scheduler/resolve``; ``obs.trace``); the default no-op tracer
+      records nothing.
   """
 
   def __init__(self, engine: RenderEngine, scene_provider,
@@ -177,7 +182,8 @@ class MicroBatcher:
                adapt_every: int = 32, adapt_improve: float = 0.05,
                resilient: ResilientExecutor | None = None,
                fallback_engine=None, fallback_scene_provider=None,
-               batch_keyer=None, clock=time.monotonic):
+               batch_keyer=None, clock=time.monotonic,
+               tracer=NULL_TRACER):
     if max_batch < 1:
       raise ValueError(f"max_batch must be >= 1, got {max_batch}")
     if max_queue < 1:
@@ -218,6 +224,7 @@ class MicroBatcher:
     self.fallback_scene_provider = fallback_scene_provider
     self._batch_keyer = batch_keyer
     self._clock = clock
+    self._tracer = tracer
     self._queue: deque[_Pending] = deque()
     self._cond = threading.Condition()
     self._stop = False
@@ -413,34 +420,37 @@ class MicroBatcher:
           return []
         if not self._queue:
           self.metrics.set_queue_depth(0)
-          self._cond.wait()
+          with self._tracer.span("scheduler/await_requests", "wait"):
+            self._cond.wait()
           continue
         head = self._queue[0]
-        t_assembly = self._clock()  # head claimed; straggler window opens
-        deadline = head.t_enqueue + self.max_wait_s
-        # Straggler window: keep collecting same-key requests (same scene
-        # — and, for tiled scenes, the same render plan) until the batch
-        # is full or the head request's wait budget is spent.
-        while True:
-          same = sum(1 for r in self._queue
-                     if r.key == head.key
-                     and not r.future.cancelled())
-          remaining = deadline - self._clock()
-          if same >= self.max_batch or remaining <= 0 or self._stop:
-            break
-          self._cond.wait(remaining)
-        batch, rest = [], deque()
-        for req in self._queue:
-          if req.future.cancelled():
-            continue
-          if req.key == head.key and len(batch) < self.max_batch:
-            batch.append(req)
-          else:
-            rest.append(req)
-        self._queue = rest
-        self.metrics.set_queue_depth(len(self._queue))
+        with self._tracer.span("scheduler/assembly", "wait"):
+          t_assembly = self._clock()  # head claimed; straggler window opens
+          deadline = head.t_enqueue + self.max_wait_s
+          # Straggler window: keep collecting same-key requests (same
+          # scene — and, for tiled scenes, the same render plan) until the
+          # batch is full or the head request's wait budget is spent.
+          while True:
+            same = sum(1 for r in self._queue
+                       if r.key == head.key
+                       and not r.future.cancelled())
+            remaining = deadline - self._clock()
+            if same >= self.max_batch or remaining <= 0 or self._stop:
+              break
+            self._cond.wait(remaining)
+          batch, rest = [], deque()
+          for req in self._queue:
+            if req.future.cancelled():
+              continue
+            if req.key == head.key and len(batch) < self.max_batch:
+              batch.append(req)
+            else:
+              rest.append(req)
+          self._queue = rest
+          self.metrics.set_queue_depth(len(self._queue))
+          t_assembled = self._clock()
         if batch:
-          self._last_assembly = (t_assembly, self._clock())
+          self._last_assembly = (t_assembly, t_assembled)
           return batch
         # Everything same-scene was cancelled during the wait; go around
         # (other-scene requests are back in the queue, NOT a stop).
@@ -462,8 +472,10 @@ class MicroBatcher:
     backpressure, preserved exactly.
     """
     with self._cond:
-      while self._inflight >= self.max_inflight and not self._stop:
-        self._cond.wait()
+      if self._inflight >= self.max_inflight and not self._stop:
+        with self._tracer.span("scheduler/await_slot", "wait"):
+          while self._inflight >= self.max_inflight and not self._stop:
+            self._cond.wait()
       return not self._stop
 
   def _make_flight(self, batch: list[_Pending]) -> _Flight | None:
@@ -747,35 +759,40 @@ class MicroBatcher:
       # fast-failing requests anyway.
       for handle in handles:
         handle.abandon()
-    self._retire(flight)
-    d1 = self._clock()
-    self.metrics.record_batch(len(batch), render_s, phases=phases)
-    done = self._clock()
-    # Attribution: each member of the flight carries an equal share of
-    # the dispatch's phase split, so the ledger's cell sums re-add to
-    # exactly what record_batch just put into phase_seconds (the
-    # conservation invariant). Built once per flight, only with a ledger
-    # attached — the default path stays allocation-free.
-    share = None
-    if getattr(self.metrics, "attrib", None) is not None:
-      n = len(batch)
-      share = {phase: float((phases or {}).get(phase + "_s", 0.0)) / n
-               for phase in ("h2d", "compute", "readback")}
-    for i, req in enumerate(batch):
-      kwargs = {}
-      if share is not None:
-        cls, level = req.attrib if req.attrib is not None else (None, 0)
-        kwargs["attrib"] = {
-            "class": cls, "level": level, "device": share,
-            "queue_wait_s": max(req.t_dispatch - req.t_enqueue, 0.0)}
-      self.metrics.record_request(done - req.t_enqueue,
-                                  scene_id=req.scene_id,
-                                  trace_id=req.trace.trace_id or None,
-                                  **kwargs)
-      dspan = req.trace.add_span("dispatch", d0, d1, size=len(batch))
-      if recorder is not None:
-        recorder.replay(req.trace, parent=dspan)
-      # Copy: out[i] is a view into the whole padded batch buffer; a
-      # caller holding one image must not pin bucket x image bytes.
-      req.future.set_result(out[i].copy())
-      req.trace.finish()
+    # The completion tail; the frame copies inside it are spans of their
+    # own, which the tracer takes out of this one.
+    with self._tracer.span("scheduler/resolve"):
+      self._retire(flight)
+      d1 = self._clock()
+      self.metrics.record_batch(len(batch), render_s, phases=phases)
+      done = self._clock()
+      # Attribution: each member of the flight carries an equal share of
+      # the dispatch's phase split, so the ledger's cell sums re-add to
+      # exactly what record_batch just put into phase_seconds (the
+      # conservation invariant). Built once per flight, only with a ledger
+      # attached — the default path stays allocation-free.
+      share = None
+      if getattr(self.metrics, "attrib", None) is not None:
+        n = len(batch)
+        share = {phase: float((phases or {}).get(phase + "_s", 0.0)) / n
+                 for phase in ("h2d", "compute", "readback")}
+      for i, req in enumerate(batch):
+        kwargs = {}
+        if share is not None:
+          cls, level = req.attrib if req.attrib is not None else (None, 0)
+          kwargs["attrib"] = {
+              "class": cls, "level": level, "device": share,
+              "queue_wait_s": max(req.t_dispatch - req.t_enqueue, 0.0)}
+        self.metrics.record_request(done - req.t_enqueue,
+                                    scene_id=req.scene_id,
+                                    trace_id=req.trace.trace_id or None,
+                                    **kwargs)
+        dspan = req.trace.add_span("dispatch", d0, d1, size=len(batch))
+        if recorder is not None:
+          recorder.replay(req.trace, parent=dspan)
+        # Copy: out[i] is a view into the whole padded batch buffer; a
+        # caller holding one image must not pin bucket x image bytes.
+        with self._tracer.span("scheduler/frame_copy"):
+          frame = out[i].copy()
+        req.future.set_result(frame)
+        req.trace.finish()

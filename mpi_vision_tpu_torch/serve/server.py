@@ -277,7 +277,9 @@ class RenderService:
       cell hits directly, warps near-misses off the nearest cached frame
       on the engine's device, and gives the HTTP layer strong ETags /
       ``If-None-Match`` -> 304 / ``Cache-Control`` (``render_edge``).
-    tracer: request tracing (obs/trace.py); None is the no-op tracer.
+    tracer: request tracing and the host spans of the scheduler and of
+      the engine the service builds (obs/trace.py); None is the no-op
+      tracer.
     profile_dir: enables ``/debug/profile`` captures into this directory
       (``obs.profile.DeviceProfiler`` over ``torch.profiler``).
     profiler: explicit profiler override (tests inject fake trace
@@ -314,8 +316,8 @@ class RenderService:
       None disables shipping.
     attrib: resource attribution (``obs.attrib``): an ``AttribConfig``
       accounts every completed request's device phase-seconds (its share
-      of the flight's ``last_timings``, timed on the card), queue wait,
-      bytes and edge serves into bounded (scene x class x brownout level)
+      of the flight's ``InFlightBatch.timings``, timed on the card), queue
+      wait, bytes and edge serves into bounded (scene x class x brownout level)
       cells served at ``GET /debug/attrib``; a pre-built ``AttribLedger``
       is adopted; None: 503.
     incidents: the SLO-triggered incident recorder (``obs.incident``): an
@@ -430,9 +432,11 @@ class RenderService:
     # nor under adaptive growth (size it for the cap, not the start).
     engine_window = max_inflight_cap if adaptive_inflight else max_inflight
     engine_kw = {} if convention is None else {"convention": convention}
+    self.tracer = tracer if tracer is not None else NULL_TRACER
     self.engine = engine if engine is not None else RenderEngine(
         method=method, device=device, use_mesh=use_mesh, devices=devices,
-        max_inflight=max(8, 2 * engine_window), **engine_kw)
+        max_inflight=max(8, 2 * engine_window), tracer=self.tracer,
+        **engine_kw)
     self.cache = cache_mod.SceneCache(byte_budget=cache_bytes)
     self.metrics = ServeMetrics()
     # Resource-attribution ledger (obs/attrib.py): installed ON the
@@ -458,7 +462,6 @@ class RenderService:
       if self.slo.on_alert is None:
         self.slo.on_alert = self._on_slo_alert
       self.metrics.slo = self.slo
-    self.tracer = tracer if tracer is not None else NULL_TRACER
     if profiler is not None:
       self.profiler = profiler
     else:
@@ -553,7 +556,7 @@ class RenderService:
         batch_keyer=(self._tile_batch_key
                      if self.tile is not None or brownout is not None
                      else None),
-        clock=clock).start()
+        clock=clock, tracer=self.tracer).start()
     # Brownout ladder (serve/brownout.py): built after the scheduler so
     # its queue-occupancy signal reads the live queue; the burn signal is
     # the SLO tracker's fast window (validated non-None above).
@@ -1340,8 +1343,16 @@ class RenderService:
                                   trace=tr), tr.trace_id)
 
   def render_async(self, scene_id: str, pose):
-    """Non-blocking render; returns a ``concurrent.futures.Future``."""
-    return self.scheduler.submit(scene_id, pose)
+    """Non-blocking render; returns a ``concurrent.futures.Future``.
+
+    Traced as ``render_traced`` is: the flight finishes the trace, a
+    submit that raises finishes it here."""
+    tr = self.tracer.start_trace("render", scene_id=str(scene_id))
+    try:
+      return self.scheduler.submit(scene_id, pose, trace=tr)
+    except Exception as e:
+      tr.finish(error=repr(e))
+      raise
 
   def _full_hw(self, scene_id: str) -> tuple[int, int]:
     """The scene's full output raster ``(H, W)`` — the shape contract a
