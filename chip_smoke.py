@@ -153,7 +153,8 @@ Phases:
      gets 409. (b) Edge cache: a miss launches the kernel, repeats are
      hits, ``If-None-Match`` -> 304, a near pose is warped on the card
      (within 1e-4 of the CPU warp) with no render, far poses miss; kernel
-     launches equal misses; p50 latency of each kind and the warp's device
+     launches equal misses times the engine's row bands (four at 1080p);
+     p50 latency of each kind and the warp's device
      time. (c) Brownout on phase 9's tiled scene, with a ladder clock the
      phase drives: L0 -> L4 and back; L0 frames bit-identical to the
      untiled ``pallas`` service's, L1 to a direct render of the thinned
@@ -269,8 +270,9 @@ Phases:
      1e-5 of ``warp_planes`` + ``over_composite`` view by view. (c)
      ``RenderService(use_mesh=True, devices=[cuda:0, cuda:0])`` on two
      1080p x 32 scenes behind ``make_http_server``: 8 concurrent ``POST
-     /render`` are one dispatch of 2 launches, and 2 to the second scene
-     one dispatch of 2 launches (a view each), every frame bit-identical
+     /render`` are one dispatch of 2 shards, and 2 to the second scene
+     one dispatch of 2 shards (a view each), each shard launched once a
+     row band of the engine's, every frame bit-identical
      to a direct render, ``/stats`` says
      sharded on 2 devices; renders/s and the busy share of a profiled
      burst beside phase 4's; then ``cli.cmd_serve`` with ``--sharded on``
@@ -368,6 +370,15 @@ def card_line() -> str:
        "--format=csv,noheader"],
       capture_output=True, text=True, timeout=60, check=True)
   return out.stdout.strip().splitlines()[0]
+
+
+def engine_launches(flights: int, shards: int = 1) -> int:
+  """Kernel launches of ``flights`` served 1080p flights of ``shards``
+  shards: the engine launches a shard once a row band
+  (``serve/engine.py`` ``row_bands``)."""
+  from mpi_vision_tpu_torch.serve.engine import row_bands
+
+  return flights * shards * len(row_bands(HEIGHT, WIDTH, "fused_pallas"))
 
 
 def pan_pose(deg: float, tx: float = 0.05, tz: float = 0.0) -> np.ndarray:
@@ -2291,8 +2302,10 @@ def phase12_degraded(torch, dev, drill, tscene, workdir: str) -> dict:
       check(hdrs["X-Edge-Cache"] == "miss", "a far pose did not miss")
     read("edge")
     edge_stats = esvc.stats()["edge"]
-    check(launches["edge"]["render_mpi_fused"] == edge_stats["misses"] == 4,
-          f"launches {launches['edge']} != misses {edge_stats['misses']}")
+    check(edge_stats["misses"] == 4 and launches["edge"]["render_mpi_fused"]
+          == engine_launches(edge_stats["misses"]),
+          f"launches {launches['edge']} != misses {edge_stats['misses']} "
+          f"x bands")
     check(np.array_equal(f_miss, direct(esvc.cache.get("drill_000"), base)),
           "an edge miss differs from a direct kernel render")
     _, k, depth, _ = esvc._edge_meta("drill_000")
@@ -3153,7 +3166,7 @@ def phase14_sessions_assets_queue(torch, dev, drill, tscene,
         f"{counts['render_mpi_fused']} times; flushes {stats['flushes']}, "
         f"mean flush {stats['mean_flush_size']}; truncated session events "
         f"{[k.decode() for k in kinds]}")
-    check(0 < counts["render_mpi_fused"] < served,
+    check(0 < counts["render_mpi_fused"] < engine_launches(served),
           f"no fusion: {counts['render_mpi_fused']} launches for {served} "
           f"frames")
     check(stats["frames"] == served and stats["active"] == 0,
@@ -4217,7 +4230,7 @@ def mesh_across_cards(torch, cards, drill, cfg, batch, vgg, zero, read
                                       for p in burst]]
     counts = read("cards_serve")
     dispatches = svc.engine.dispatches - d0
-    check(counts["render_mpi_fused"] == n * dispatches,
+    check(counts["render_mpi_fused"] == engine_launches(dispatches, n),
           f"{dispatches} dispatches over {n} cards launched "
           f"{counts['render_mpi_fused']} times")
     scene = svc.cache.get("cards_000")
@@ -4475,9 +4488,11 @@ def phase16_mesh(torch, dev, drill, scene1, workdir: str,
     counts = read("serve_concurrent")
     dispatches = svc.engine.dispatches - d0
     check(not errors, f"concurrent /render failed: {errors[:1]}")
-    check(dispatches == 1 and counts["render_mpi_fused"] == 2,
+    check(dispatches == 1
+          and counts["render_mpi_fused"] == engine_launches(1, 2),
           f"8 concurrent requests took {dispatches} dispatches and "
-          f"{counts['render_mpi_fused']} launches, not 1 and 2")
+          f"{counts['render_mpi_fused']} launches, not 1 and "
+          f"{engine_launches(1, 2)}")
     seq = [pan_pose(-2.0 * i, -0.02 * i) for i in range(2)]
     pair: list = [None] * len(seq)
 
@@ -4499,9 +4514,11 @@ def phase16_mesh(torch, dev, drill, scene1, workdir: str,
     counts = read("serve_second_scene")
     dispatches = svc.engine.dispatches - d0
     check(not errors, f"/render of the second scene failed: {errors[:1]}")
-    check(dispatches == 1 and counts["render_mpi_fused"] == 2,
+    check(dispatches == 1
+          and counts["render_mpi_fused"] == engine_launches(1, 2),
           f"2 requests took {dispatches} dispatches and "
-          f"{counts['render_mpi_fused']} launches, not 1 and 2")
+          f"{counts['render_mpi_fused']} launches, not 1 and "
+          f"{engine_launches(1, 2)}")
     frames += pair
     for (sid, pose), frame in zip([("mesh_000", p) for p in conc]
                                   + [("mesh_001", p) for p in seq], frames):

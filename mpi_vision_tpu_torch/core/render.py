@@ -166,6 +166,27 @@ def render_views(
                     src_window=src_window)
 
 
+def views_homographies(
+    tgt_poses: torch.Tensor,
+    depths: torch.Tensor,
+    intrinsics: torch.Tensor,
+    height: int,
+    width: int,
+    convention: Convention = Convention.REF_HOMOGRAPHY,
+) -> torch.Tensor:
+  """The homographies ``render_views(..., method="fused_pallas")`` hands
+  the kernel for ``[V, 4, 4]`` poses of one ``height x width`` scene:
+  ``[V, P, 3, 3]``, contiguous, computed as that call computes them. The
+  serving engine launches the kernel on them band by band
+  (``kernels/render_fused.render_bands``)."""
+  k = intrinsics.unsqueeze(0).expand(tgt_poses.shape[0], 3, 3)
+  from mpi_vision_tpu_torch.kernels import render_fused
+  with named_scope("render/homographies"):
+    homs = render_fused.pixel_homographies(
+        tgt_poses, depths, k, height, width, convention)  # [P, V, 3, 3]
+  return homs.transpose(0, 1).contiguous()
+
+
 def render_mpi(
     rgba_layers: torch.Tensor,
     tgt_pose: torch.Tensor,

@@ -40,16 +40,28 @@ _profiler_range = getattr(torch._C._profiler, "_RecordFunctionFast",
 
 @contextlib.contextmanager
 def named_scope(name: str):
-  """NVTX range + profiler (``record_function``) range named ``name``."""
+  """NVTX range + profiler (``record_function``) range named ``name``.
+
+  A profiler started while the range is open (``/debug/profile`` under
+  load) leaves it out of the capture instead of failing the caller: the
+  fast range asserts on exit that it opened something, which it did not.
+  """
   nvtx = torch.cuda.is_available()
   if nvtx:
     torch.cuda.nvtx.range_push(name)
+  profiler_range = _profiler_range(name)
+  profiler_range.__enter__()
   try:
-    with _profiler_range(name):
-      yield
+    yield
   finally:
-    if nvtx:
-      torch.cuda.nvtx.range_pop()
+    try:
+      profiler_range.__exit__(None, None, None)
+    except RuntimeError as e:
+      if "no guard is set" not in str(e):
+        raise
+    finally:
+      if nvtx:
+        torch.cuda.nvtx.range_pop()
 
 
 @contextlib.contextmanager

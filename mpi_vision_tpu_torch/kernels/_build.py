@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
 # Compiler output (ptxas register and spill report) of each build in this
 # process, by kernel name.
 build_logs: dict[str, str] = {}
@@ -105,18 +105,21 @@ def build(names) -> dict[str, float]:
   return seconds
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str, signatures: dict) -> ctypes.PyDLL:
   """The loaded library of ``csrc/<name>.cu``, building it on first use.
 
   ``signatures`` maps each C function to ``(argtypes, restype)``; they are
   declared once, when the library loads (a pointer passed without its
-  ``argtypes`` would be cut to 32 bits).
+  ``argtypes`` would be cut to 32 bits). Calls keep the interpreter lock
+  (``ctypes.PyDLL``): every C entry point only enqueues work on a stream,
+  and a call that enqueues several operations must not let another thread
+  run between two of them.
   """
   with _lock:
     lib = _libs.get(name)
     if lib is None:
       build([name])
-      lib = ctypes.CDLL(str(library_path(name)))
+      lib = ctypes.PyDLL(str(library_path(name)))
       for fn_name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = argtypes, restype

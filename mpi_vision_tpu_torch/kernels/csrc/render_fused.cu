@@ -18,6 +18,10 @@
 //     out    = plane 0 ? sample.rgb
 //                      : sample.rgb * sample.a + out * (1 - sample.a)
 //   and writes out as [V, H, W, 3] float32.
+// A launch renders the rows [row0, row0 + rows) of every view into the
+// caller's whole [V, H, W, 3] buffer (the serving engine renders a flight in
+// row bands and reads each band back while the next one renders); a pixel's
+// expression does not depend on the band it lands in.
 // The source coordinate goes through the sampler's normalised space
 // (c = (u + 0.5) / W, then u' = c * W - 0.5) exactly as the plain PyTorch
 // version (kernels/render_fused.py: plain_render) and the JAX reference_render
@@ -79,7 +83,7 @@ render_fused_kernel(const float4* __restrict__ planes,
                     const float* __restrict__ homs,
                     float* __restrict__ out, int views, int view_chunk,
                     int num_planes, int height, int width,
-                    long long view_stride4) {
+                    long long view_stride4, int row0, int row_end) {
   extern __shared__ float sh_homs[];  // [nv, num_planes, 9]
   const int v0 = blockIdx.z * view_chunk;
   const int nv = min(view_chunk, views - v0);
@@ -91,8 +95,8 @@ render_fused_kernel(const float4* __restrict__ planes,
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+  const int y = row0 + blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= width || y >= row_end) return;
 
   const float ox = static_cast<float>(x);
   const float oy = static_cast<float>(y);
@@ -137,29 +141,100 @@ render_fused_kernel(const float4* __restrict__ planes,
   }
 }
 
-}  // namespace
-
-// Launches the kernel on `stream` for `views` views. Returns the CUDA error
-// code of the launch (0 on success); the caller raises on anything else.
-extern "C" int mpi_render_fused(const void* planes, const void* homs,
-                                void* out, int views, int num_planes,
-                                int height, int width, long long view_stride,
-                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The kernel for rows [row0, row0 + rows) of `views` views, on `stream`.
+cudaError_t launch_rows(const void* planes, const void* homs, void* out,
+                        int views, int num_planes, int height, int width,
+                        long long view_stride, int row0, int rows,
+                        cudaStream_t stream) {
   const int chunk =
       view_stride != 0 ? 1 : (views < kViewChunk ? views : kViewChunk);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY,
+                  (rows + kBlockY - 1) / kBlockY,
                   (views + chunk - 1) / chunk);
   const dim3 block(kBlockX, kBlockY, 1);
   const size_t smem =
       static_cast<size_t>(chunk) * num_planes * 9 * sizeof(float);
   auto kernel = chunk == 1 ? render_fused_kernel<1>
                            : render_fused_kernel<kViewChunk>;
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float*>(homs),
       static_cast<float*>(out), views, chunk, num_planes, height, width,
-      view_stride / 4);
-  return static_cast<int>(cudaGetLastError());
+      view_stride / 4, row0, row0 + rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` for rows [row0, row0 + rows) of `views`
+// views. Returns the CUDA error code of the launch (0 on success); the caller
+// raises on anything else.
+extern "C" int mpi_render_fused(const void* planes, const void* homs,
+                                void* out, int views, int num_planes,
+                                int height, int width, long long view_stride,
+                                int row0, int rows, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_rows(planes, homs, out, views, num_planes, height, width,
+                  view_stride, row0, rows, static_cast<cudaStream_t>(stream)));
+}
+
+// Renders a flight in `bands` row bands, band b being rows
+// [edges[b], edges[b + 1]) of every view, into the device buffer `frames`
+// on `compute`, and reads each band back as soon as it is rendered: after
+// band b's launch an event on `compute`, a wait for it on `copy`, and one
+// strided copy on `copy` of the band's rows of every view into the pinned
+// host buffer `host` (both [views, height, width, 3] float32). So the copy
+// engine reads band b back while the SMs render band b + 1. Everything is
+// enqueued here, one band after the other, with no host work between a
+// band's launch and its copy. `rendered`, if given, is recorded after the
+// last band's launch; `copy_marks`, if given, before and after each band's
+// copy (2 * bands events). Returns the first CUDA error (0 on success).
+extern "C" int mpi_render_bands(const void* planes, const void* homs,
+                                void* frames, void* host, int views,
+                                int num_planes, int height, int width,
+                                long long view_stride, const int* edges,
+                                int bands, int device, void* compute,
+                                void* copy, void* rendered,
+                                void* const* copy_marks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto compute_stream = static_cast<cudaStream_t>(compute);
+  const auto copy_stream = static_cast<cudaStream_t>(copy);
+  const long long row_bytes = static_cast<long long>(width) * 3 * sizeof(float);
+  const long long pitch = row_bytes * height;
+  for (int b = 0; b < bands && err == cudaSuccess; ++b) {
+    err = launch_rows(planes, homs, frames, views, num_planes, height, width,
+                      view_stride, edges[b], edges[b + 1] - edges[b],
+                      compute_stream);
+    if (err != cudaSuccess) break;
+    const bool last = b == bands - 1 && rendered != nullptr;
+    cudaEvent_t done = static_cast<cudaEvent_t>(rendered);
+    if (!last) {
+      err = cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
+      if (err != cudaSuccess) break;
+    }
+    err = cudaEventRecord(done, compute_stream);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(copy_stream, done, 0);
+    // A pending event may be destroyed: its resources go when it completes.
+    if (!last) cudaEventDestroy(done);
+    if (err == cudaSuccess && copy_marks != nullptr) {
+      err = cudaEventRecord(static_cast<cudaEvent_t>(copy_marks[2 * b]),
+                            copy_stream);
+    }
+    if (err == cudaSuccess) {
+      const long long offset = row_bytes * edges[b];
+      err = cudaMemcpy2DAsync(
+          static_cast<char*>(host) + offset, pitch,
+          static_cast<const char*>(frames) + offset, pitch,
+          row_bytes * (edges[b + 1] - edges[b]), views,
+          cudaMemcpyDeviceToHost, copy_stream);
+    }
+    if (err == cudaSuccess && copy_marks != nullptr) {
+      err = cudaEventRecord(static_cast<cudaEvent_t>(copy_marks[2 * b + 1]),
+                            copy_stream);
+    }
+  }
+  return static_cast<int>(err);
 }

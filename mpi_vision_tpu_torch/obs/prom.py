@@ -194,6 +194,10 @@ def serve_registry(stats: dict,
       "Device render time split by phase (h2d / compute / readback).")
   for phase in ("h2d", "compute", "readback"):
     phase_m.sample(phases.get(phase, 0.0), {"phase": phase})
+  # The part of readback that ran under compute (serve/engine.py's row
+  # bands), where the engine reports it: inside the three, not beside them.
+  if "readback_hidden" in phases:
+    phase_m.sample(phases["readback_hidden"], {"phase": "readback_hidden"})
   errors = stats.get("errors") or {}
   err_m = reg.counter(
       p + "errors_total",

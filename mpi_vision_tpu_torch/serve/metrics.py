@@ -81,8 +81,11 @@ class ServeMetrics:
       self.batches = 0
       self.render_seconds = 0.0
       # Device-phase split of render_seconds (InFlightBatch.timings):
-      # host->device transfer / compute / device->host readback.
-      self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0}
+      # host->device transfer / compute / device->host readback, and the
+      # part of the readback that ran under the compute (inside those
+      # three, not beside them).
+      self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0,
+                            "readback_hidden": 0.0}
       # Failure accounting: without these, failed renders vanish from the
       # snapshot entirely (record_request fires only on success) and
       # /stats reads "healthy" straight through an outage.
@@ -440,8 +443,9 @@ class ServeMetrics:
     """One device dispatch of ``size`` coalesced requests.
 
     ``phases`` is the engine's per-dispatch phase split (keys ``h2d_s``,
-    ``compute_s``, ``readback_s``), accumulated into lifetime totals so
-    ``/metrics`` can say where device time actually goes.
+    ``compute_s``, ``readback_s``, ``readback_hidden_s``), accumulated
+    into lifetime totals so ``/metrics`` can say where device time
+    actually goes.
     """
     with self._lock:
       self.batches += 1
@@ -453,6 +457,8 @@ class ServeMetrics:
           phase_s = float(phases.get(key + "_s", 0.0))
           self.phase_seconds[key] += phase_s
           self._hist_phase[key].record(phase_s)
+        self.phase_seconds["readback_hidden"] += float(
+            phases.get("readback_hidden_s", 0.0))
 
   def record_tiles(self, touched: int, rendered: int, total: int,
                    planes: int | None = None) -> None:
@@ -488,10 +494,13 @@ class ServeMetrics:
   def attrib_reference(self) -> dict:
     """The attribution ledger's conservation reference — the UNROUNDED
     request/phase totals (``snapshot()`` rounds to 3 decimals, which
-    would swamp the reconciliation's 1e-6 tolerance)."""
+    would swamp the reconciliation's 1e-6 tolerance), of the three phases
+    the ledger splits (``readback_hidden`` lies inside them)."""
     with self._lock:
       return {"requests": self.requests,
-              "device_phase_seconds": dict(self.phase_seconds)}
+              "device_phase_seconds": {
+                  p: self.phase_seconds[p]
+                  for p in ("h2d", "compute", "readback")}}
 
   def set_queue_depth(self, depth: int) -> None:
     with self._lock:

@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mpi_vision_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from mpi_vision_tpu_torch.serve import RenderService
@@ -200,3 +201,23 @@ def test_an_untraced_service_records_nothing():
   assert NULL_TRACER.host_totals() == {}
   assert NULL_TRACER.host_spans() == []
   assert NULL_TRACER.finished == 0
+
+
+def test_a_profiler_started_inside_a_range_does_not_fail_it():
+  """``/debug/profile`` starts the profiler while completers are inside
+  ``named_scope`` ranges: those ranges leave the capture, and the request
+  goes on."""
+  from mpi_vision_tpu_torch.debug import named_scope
+
+  prof = torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU])
+  try:
+    with named_scope("render/homographies"):
+      prof.__enter__()
+    with named_scope("render/warp_composite"):
+      pass
+  finally:
+    prof.__exit__(None, None, None)
+  names = {e.name for e in prof.events()}
+  assert "render/warp_composite" in names
+  assert "render/homographies" not in names

@@ -142,7 +142,10 @@ def test_engine_buckets_pads_and_streams(svc):
   assert handle.out.shape[0] == 4 and engine.poll(handle)
   out = engine.wait(handle)
   assert out.shape == (3, H, W, 3) and engine.inflight == 0
-  assert set(handle.timings) == {"h2d_s", "compute_s", "readback_s"}
+  assert set(handle.timings) == {"h2d_s", "compute_s", "readback_s",
+                                 "readback_hidden_s"}
+  # The CPU renders synchronously: no readback runs under a render.
+  assert handle.timings["readback_hidden_s"] == 0.0
   np.testing.assert_array_equal(out, engine.render_batch(
       scene, np.stack(POSES[:3])))
 
