@@ -16,8 +16,9 @@ Phases:
      the TPU kernels' banded tier), which cover separable and general
      homographies: max |kernel - plain| <= 1e-4; a batch
      of all five equals the single-view renders bit for bit, and so does
-     every view of 9- and 16-view batches (several view chunks); one scene
-     per view (the view-stride path) at a small size.
+     every view of 9- and 16-view batches (several view chunks), and the
+     write-through instance's frames of the five in pinned host memory;
+     one scene per view (the view-stride path) at a small size.
   4. serve (the main path): ``RenderService`` on the card with
      ``Convention.EXACT`` and two 1080p x 32-plane synthetic scenes, warmed
      up, behind ``make_http_server``; 8 concurrent and 3 sequential
@@ -153,7 +154,7 @@ Phases:
      gets 409. (b) Edge cache: a miss launches the kernel, repeats are
      hits, ``If-None-Match`` -> 304, a near pose is warped on the card
      (within 1e-4 of the CPU warp) with no render, far poses miss; kernel
-     launches equal misses times the engine's row bands (four at 1080p);
+     launches equal misses (one write-through launch a flight);
      p50 latency of each kind and the warp's device
      time. (c) Brownout on phase 9's tiled scene, with a ladder clock the
      phase drives: L0 -> L4 and back; L0 frames bit-identical to the
@@ -271,8 +272,8 @@ Phases:
      ``RenderService(use_mesh=True, devices=[cuda:0, cuda:0])`` on two
      1080p x 32 scenes behind ``make_http_server``: 8 concurrent ``POST
      /render`` are one dispatch of 2 shards, and 2 to the second scene
-     one dispatch of 2 shards (a view each), each shard launched once a
-     row band of the engine's, every frame bit-identical
+     one dispatch of 2 shards (a view each), each shard launched once,
+     every frame bit-identical
      to a direct render, ``/stats`` says
      sharded on 2 devices; renders/s and the busy share of a profiled
      burst beside phase 4's; then ``cli.cmd_serve`` with ``--sharded on``
@@ -374,11 +375,9 @@ def card_line() -> str:
 
 def engine_launches(flights: int, shards: int = 1) -> int:
   """Kernel launches of ``flights`` served 1080p flights of ``shards``
-  shards: the engine launches a shard once a row band
-  (``serve/engine.py`` ``row_bands``)."""
-  from mpi_vision_tpu_torch.serve.engine import row_bands
-
-  return flights * shards * len(row_bands(HEIGHT, WIDTH, "fused_pallas"))
+  shards: the engine launches the kernel once a shard a flight
+  (``serve/engine.py``: a write-through launch, or ``render_views``')."""
+  return flights * shards
 
 
 def pan_pose(deg: float, tx: float = 0.05, tz: float = 0.0) -> np.ndarray:
@@ -2304,8 +2303,7 @@ def phase12_degraded(torch, dev, drill, tscene, workdir: str) -> dict:
     edge_stats = esvc.stats()["edge"]
     check(edge_stats["misses"] == 4 and launches["edge"]["render_mpi_fused"]
           == engine_launches(edge_stats["misses"]),
-          f"launches {launches['edge']} != misses {edge_stats['misses']} "
-          f"x bands")
+          f"launches {launches['edge']} != misses {edge_stats['misses']}")
     check(np.array_equal(f_miss, direct(esvc.cache.get("drill_000"), base)),
           "an edge miss differs from a direct kernel render")
     _, k, depth, _ = esvc._edge_meta("drill_000")
@@ -4866,7 +4864,17 @@ def main() -> int:
   check(torch.equal(batch, torch.cat(singles)),
         "a batch of views differs from the same views rendered alone")
   log("kernel batch of 5 == 5 single renders, bit for bit")
-  del batch, singles
+  # The write-through instance: the same frames, stored into pinned host
+  # memory by the kernel itself.
+  host = torch.empty(tuple(batch.shape), dtype=torch.float32,
+                     pin_memory=True)
+  render_fused.render_to_host(
+      planes, homs_for(np.stack(list(classes.values()))), host)
+  torch.cuda.synchronize()
+  check(torch.equal(host, batch.cpu()),
+        "the write-through frames differ from the device-output launch")
+  log("kernel write-through of 5 == the device-output batch, bit for bit")
+  del batch, singles, host
   # More views than one block's chunk: V = 9 and 16 take several chunks.
   for views in (9, 16):
     homs_v = homs_for(np.stack([pan_pose(2.0 * i - 8.0, 0.01 * i)

@@ -177,8 +177,8 @@ def views_homographies(
   """The homographies ``render_views(..., method="fused_pallas")`` hands
   the kernel for ``[V, 4, 4]`` poses of one ``height x width`` scene:
   ``[V, P, 3, 3]``, contiguous, computed as that call computes them. The
-  serving engine launches the kernel on them band by band
-  (``kernels/render_fused.render_bands``)."""
+  serving engine launches the write-through kernel on them
+  (``kernels/render_fused.render_to_host``)."""
   k = intrinsics.unsqueeze(0).expand(tgt_poses.shape[0], 3, 3)
   from mpi_vision_tpu_torch.kernels import render_fused
   with named_scope("render/homographies"):

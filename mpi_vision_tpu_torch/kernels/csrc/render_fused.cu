@@ -18,10 +18,6 @@
 //     out    = plane 0 ? sample.rgb
 //                      : sample.rgb * sample.a + out * (1 - sample.a)
 //   and writes out as [V, H, W, 3] float32.
-// A launch renders the rows [row0, row0 + rows) of every view into the
-// caller's whole [V, H, W, 3] buffer (the serving engine renders a flight in
-// row bands and reads each band back while the next one renders); a pixel's
-// expression does not depend on the band it lands in.
 // The source coordinate goes through the sampler's normalised space
 // (c = (u + 0.5) / W, then u' = c * W - 0.5) exactly as the plain PyTorch
 // version (kernels/render_fused.py: plain_render) and the JAX reference_render
@@ -62,8 +58,29 @@
 // pixels do not depend on its chunk or its neighbours: each view's
 // composite is the same expression sequence whatever else the block
 // renders.
+//
+// Write-through (mpi_render_to_host). A flight headed to the host needs no
+// frames on the card: the kToHost instance stores its composites straight
+// into the caller's pinned host buffer, mapped into the card's address space
+// (UVA), so the frames cross PCIe as posted writes while other blocks still
+// render, and no copy follows the kernel. The block first stages its tile in
+// shared memory, [nv][8 rows][32 pixels x 3] floats (3 KB a view, 12 KB for
+// a chunk of 4), then writes each tile row as 16-byte stores: a 32-pixel row
+// is 384 B, three whole 128-byte lines at a width of 1920 (a 1080p frame row
+// is 180 lines), so every warp store covers whole lines and no strided
+// 4-byte partial writes go over the link. A ragged tile, or a row that does
+// not start on 16 bytes, takes scalar stores of its valid pixels. The pixels
+// are the device-output instance's, bit for bit: the composite above is
+// shared, only where it is stored differs. Staging costs 12 KB of shared
+// memory a block of 4 views beside the maps (84 KB an SM at five blocks),
+// and nothing else: under the same 48-register cap ptxas gives the chunk
+// of 4 no spill (the device-output instance keeps its 8 bytes), so five
+// blocks an SM still fit. On an H100 the stores reach 48-50 GB/s against
+// the copy engine's 54-55 and a store-only kernel's 52 (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "render_sample.cuh"
 
@@ -74,17 +91,23 @@ constexpr int kBlockY = 8;
 constexpr int kViewChunk = 4;  // views per block of a shared scene
 // Five blocks of 256 threads to an SM: at most 48 registers a thread.
 constexpr int kMinBlocks = 5;
+// A tile row of RGB floats, and its 16-byte vectors.
+constexpr int kRowFloats = kBlockX * 3;
+constexpr int kRowVecs = kRowFloats / 4;
 
 // kNV: the most views a block renders. A chunk of one keeps one composite
-// in registers, not kViewChunk of them.
-template <int kNV>
+// in registers, not kViewChunk of them. kToHost: `out` is mapped pinned host
+// memory, written through a staged tile (see the note above).
+template <int kNV, bool kToHost>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
 render_fused_kernel(const float4* __restrict__ planes,
                     const float* __restrict__ homs,
                     float* __restrict__ out, int views, int view_chunk,
                     int num_planes, int height, int width,
-                    long long view_stride4, int row0, int row_end) {
+                    long long view_stride4) {
   extern __shared__ float sh_homs[];  // [nv, num_planes, 9]
+  __shared__ __align__(16) float stage[kToHost ? kNV * kBlockY * kRowFloats
+                                               : 1];
   const int v0 = blockIdx.z * view_chunk;
   const int nv = min(view_chunk, views - v0);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -95,8 +118,10 @@ render_fused_kernel(const float4* __restrict__ planes,
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = row0 + blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= width || y >= row_end) return;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  // The write-through's threads past the image's edge render and stage a
+  // pixel that is never stored, so that all of them reach the barrier.
+  if (!kToHost && (x >= width || y >= height)) return;
 
   const float ox = static_cast<float>(x);
   const float oy = static_cast<float>(y);
@@ -129,112 +154,113 @@ render_fused_kernel(const float4* __restrict__ planes,
       }
     }
   }
-  const long long pixel = static_cast<long long>(y) * width + x;
+  if (!kToHost) {
+    const long long pixel = static_cast<long long>(y) * width + x;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      if (k < nv) {
+        float* dst = out + ((v0 + k) * plane_size + pixel) * 3;
+        dst[0] = r[k];
+        dst[1] = g[k];
+        dst[2] = b[k];
+      }
+    }
+    return;
+  }
+
 #pragma unroll
   for (int k = 0; k < kNV; ++k) {
     if (k < nv) {
-      float* dst = out + ((v0 + k) * plane_size + pixel) * 3;
-      dst[0] = r[k];
-      dst[1] = g[k];
-      dst[2] = b[k];
+      float* st =
+          stage + (k * kBlockY + threadIdx.y) * kRowFloats + threadIdx.x * 3;
+      st[0] = r[k];
+      st[1] = g[k];
+      st[2] = b[k];
+    }
+  }
+  __syncthreads();
+  // Tile row `row` (view k = row / kBlockY) goes out as kRowVecs 16-byte
+  // stores, one a thread, consecutive threads on consecutive vectors.
+  const int x0 = blockIdx.x * kBlockX;
+  const int row_floats = min(kBlockX, width - x0) * 3;
+  for (int i = tid; i < nv * kBlockY * kRowVecs; i += kBlockX * kBlockY) {
+    const int row = i / kRowVecs;
+    const int vec = i - row * kRowVecs;
+    const int k = row / kBlockY;
+    const int yy = blockIdx.y * kBlockY + (row - k * kBlockY);
+    if (yy >= height) continue;
+    float* dst =
+        out + ((v0 + k) * plane_size + static_cast<long long>(yy) * width + x0) *
+                  3;
+    const float* src = stage + row * kRowFloats;
+    if (row_floats == kRowFloats &&
+        (reinterpret_cast<std::uintptr_t>(dst) & 15) == 0) {
+      reinterpret_cast<float4*>(dst)[vec] =
+          reinterpret_cast<const float4*>(src)[vec];
+    } else {
+      for (int c = 4 * vec; c < min(4 * vec + 4, row_floats); ++c) {
+        dst[c] = src[c];
+      }
     }
   }
 }
 
-// The kernel for rows [row0, row0 + rows) of `views` views, on `stream`.
-cudaError_t launch_rows(const void* planes, const void* homs, void* out,
-                        int views, int num_planes, int height, int width,
-                        long long view_stride, int row0, int rows,
-                        cudaStream_t stream) {
+// The kernel for every row of `views` views, on `stream`: the device-output
+// instance, or the write-through one into mapped host memory.
+cudaError_t launch(const void* planes, const void* homs, void* out, int views,
+                   int num_planes, int height, int width,
+                   long long view_stride, bool to_host, cudaStream_t stream) {
   const int chunk =
       view_stride != 0 ? 1 : (views < kViewChunk ? views : kViewChunk);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (rows + kBlockY - 1) / kBlockY,
+                  (height + kBlockY - 1) / kBlockY,
                   (views + chunk - 1) / chunk);
   const dim3 block(kBlockX, kBlockY, 1);
   const size_t smem =
       static_cast<size_t>(chunk) * num_planes * 9 * sizeof(float);
-  auto kernel = chunk == 1 ? render_fused_kernel<1>
-                           : render_fused_kernel<kViewChunk>;
+  auto kernel = chunk == 1
+                    ? (to_host ? render_fused_kernel<1, true>
+                               : render_fused_kernel<1, false>)
+                    : (to_host ? render_fused_kernel<kViewChunk, true>
+                               : render_fused_kernel<kViewChunk, false>);
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float*>(homs),
       static_cast<float*>(out), views, chunk, num_planes, height, width,
-      view_stride / 4, row0, row0 + rows);
+      view_stride / 4);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` for rows [row0, row0 + rows) of `views`
-// views. Returns the CUDA error code of the launch (0 on success); the caller
+// Launches the kernel on `stream` for `views` views into the device buffer
+// `out`. Returns the CUDA error code of the launch (0 on success); the caller
 // raises on anything else.
 extern "C" int mpi_render_fused(const void* planes, const void* homs,
                                 void* out, int views, int num_planes,
                                 int height, int width, long long view_stride,
-                                int row0, int rows, int device,
-                                void* stream) {
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_rows(planes, homs, out, views, num_planes, height, width,
-                  view_stride, row0, rows, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(planes, homs, out, views, num_planes, height,
+                                 width, view_stride, false,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
-// Renders a flight in `bands` row bands, band b being rows
-// [edges[b], edges[b + 1]) of every view, into the device buffer `frames`
-// on `compute`, and reads each band back as soon as it is rendered: after
-// band b's launch an event on `compute`, a wait for it on `copy`, and one
-// strided copy on `copy` of the band's rows of every view into the pinned
-// host buffer `host` (both [views, height, width, 3] float32). So the copy
-// engine reads band b back while the SMs render band b + 1. Everything is
-// enqueued here, one band after the other, with no host work between a
-// band's launch and its copy. `rendered`, if given, is recorded after the
-// last band's launch; `copy_marks`, if given, before and after each band's
-// copy (2 * bands events). Returns the first CUDA error (0 on success).
-extern "C" int mpi_render_bands(const void* planes, const void* homs,
-                                void* frames, void* host, int views,
-                                int num_planes, int height, int width,
-                                long long view_stride, const int* edges,
-                                int bands, int device, void* compute,
-                                void* copy, void* rendered,
-                                void* const* copy_marks) {
+// Launches the write-through instance on `stream` for `views` views into
+// `host`, pinned host memory ([views, height, width, 3] float32), through its
+// device mapping. Only enqueues: no event, no copy, no synchronise. Returns
+// the CUDA error code of the mapping or the launch (0 on success).
+extern "C" int mpi_render_to_host(const void* planes, const void* homs,
+                                  void* host, int views, int num_planes,
+                                  int height, int width,
+                                  long long view_stride, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto compute_stream = static_cast<cudaStream_t>(compute);
-  const auto copy_stream = static_cast<cudaStream_t>(copy);
-  const long long row_bytes = static_cast<long long>(width) * 3 * sizeof(float);
-  const long long pitch = row_bytes * height;
-  for (int b = 0; b < bands && err == cudaSuccess; ++b) {
-    err = launch_rows(planes, homs, frames, views, num_planes, height, width,
-                      view_stride, edges[b], edges[b + 1] - edges[b],
-                      compute_stream);
-    if (err != cudaSuccess) break;
-    const bool last = b == bands - 1 && rendered != nullptr;
-    cudaEvent_t done = static_cast<cudaEvent_t>(rendered);
-    if (!last) {
-      err = cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
-      if (err != cudaSuccess) break;
-    }
-    err = cudaEventRecord(done, compute_stream);
-    if (err == cudaSuccess) err = cudaStreamWaitEvent(copy_stream, done, 0);
-    // A pending event may be destroyed: its resources go when it completes.
-    if (!last) cudaEventDestroy(done);
-    if (err == cudaSuccess && copy_marks != nullptr) {
-      err = cudaEventRecord(static_cast<cudaEvent_t>(copy_marks[2 * b]),
-                            copy_stream);
-    }
-    if (err == cudaSuccess) {
-      const long long offset = row_bytes * edges[b];
-      err = cudaMemcpy2DAsync(
-          static_cast<char*>(host) + offset, pitch,
-          static_cast<const char*>(frames) + offset, pitch,
-          row_bytes * (edges[b + 1] - edges[b]), views,
-          cudaMemcpyDeviceToHost, copy_stream);
-    }
-    if (err == cudaSuccess && copy_marks != nullptr) {
-      err = cudaEventRecord(static_cast<cudaEvent_t>(copy_marks[2 * b + 1]),
-                            copy_stream);
-    }
-  }
-  return static_cast<int>(err);
+  void* out = nullptr;
+  err = cudaHostGetDevicePointer(&out, host, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch(planes, homs, out, views, num_planes, height,
+                                 width, view_stride, true,
+                                 static_cast<cudaStream_t>(stream)));
 }

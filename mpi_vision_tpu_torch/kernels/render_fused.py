@@ -21,10 +21,9 @@ plan, and no fallback.
     ``plain_render`` for CPU tensors, and raises on anything else. It
     goes through ``_FusedRender``, an autograd ``Function`` whose backward
     is ``kernels/render_fused_bwd.py``.
-  * ``render_bands`` — forward only: a flight rendered in row bands into a
-    frames buffer, each band's rows read back to pinned host memory on a
-    copy stream as soon as the band is rendered, so the readback runs under
-    the later bands' render (``serve/engine.py``).
+  * ``render_to_host`` — forward only: the kernel writes a flight's frames
+    straight into pinned host memory as it composites them, so no frames
+    buffer and no copy exist on the card (``serve/engine.py``).
   * ``launch_shape`` / ``check_launch`` — the kernel's launch (a block
     renders one tile for a chunk of up to ``VIEW_CHUNK`` views of a shared
     scene, one pass over the scene per chunk) and the limits the wrapper
@@ -43,23 +42,13 @@ from mpi_vision_tpu_torch.core import geometry, render, sampling
 from mpi_vision_tpu_torch.core.sampling import Convention
 
 KERNEL = "render_fused"
-# The C entry points of csrc/render_fused.cu. The kernel: planes, homs, out,
-# views, planes, height, width, view stride (floats), first row, rows,
-# device index, stream. The bands: planes, homs, frames, host, views,
-# planes, height, width, view stride, band edges, bands, device index,
-# compute stream, copy stream, the rendered event, the copies' events.
-_SIGNATURES = {
-    "mpi_render_fused": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int),
-    "mpi_render_bands": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.POINTER(ctypes.c_void_p)], ctypes.c_int)}
+# The C entry points of csrc/render_fused.cu, both: planes, homs, out
+# (device memory for the first, pinned host memory for the second), views,
+# planes, height, width, view stride (floats), device index, stream.
+_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+          ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+_SIGNATURES = {"mpi_render_fused": _ARGS, "mpi_render_to_host": _ARGS}
 # f32 operations that warp + bilinear sample + composite need for one
 # output pixel of one plane: homography 6 mul + 6 add + 2 div + the zero
 # test (15); floor, fraction and 1 - fraction for x and y (6); 4 channels
@@ -74,10 +63,12 @@ FLOPS_PER_SAMPLE = 15 + 6 + 36 + 10
 TILE = (32, 8)
 VIEW_CHUNK = 4
 # The chunk's homographies are staged in shared memory, views x P x 9
-# floats per block; past 48 KiB the launch needs an opt-in attribute this
-# kernel does not set. MAX_PLANES is the limit at a full chunk.
+# floats per block, and the write-through's tile beside them, views x 8 x 96
+# floats; past 48 KiB the launch needs an opt-in attribute this kernel does
+# not set. MAX_PLANES is the limit at a full chunk of device output.
 SMEM_LIMIT = 48 * 1024
 MAX_PLANES = SMEM_LIMIT // (VIEW_CHUNK * 9 * 4)
+STAGE_BYTES = TILE[1] * TILE[0] * 3 * 4  # one view's staged tile
 MAX_VIEWS = 65535  # gridDim.z
 # Offsets inside one plane are 32-bit.
 MAX_PLANE_PIXELS = 2**31 - 1
@@ -87,26 +78,28 @@ _count_lock = threading.Lock()
 
 
 def launch_shape(views: int, num_planes: int, height: int, width: int,
-                 shared: bool) -> dict:
+                 shared: bool, to_host: bool = False) -> dict:
   """The kernel's launch for ``views`` views of ``[P, H, W]`` planes, as
-  ``csrc/render_fused.cu``'s entry point computes it: ``view_chunk`` views
+  ``csrc/render_fused.cu``'s entry points compute it: ``view_chunk`` views
   per block (``VIEW_CHUNK`` of a shared scene, one for one scene per view),
-  ``grid`` (x tiles, y tiles, view chunks), ``block`` and the dynamic
-  ``smem_bytes`` of the chunk's homographies."""
+  ``grid`` (x tiles, y tiles, view chunks), ``block`` and the
+  ``smem_bytes`` of the chunk's homographies, with the staged tile of the
+  write-through (``to_host``)."""
   chunk = min(views, VIEW_CHUNK) if shared else 1
   return {"view_chunk": chunk,
           "grid": (-(-width // TILE[0]), -(-height // TILE[1]),
                    -(-views // chunk)),
           "block": TILE,
-          "smem_bytes": chunk * num_planes * 9 * 4}
+          "smem_bytes": chunk * (num_planes * 9 * 4
+                                 + (STAGE_BYTES if to_host else 0))}
 
 
 def check_launch(name: str, views: int, num_planes: int, height: int,
-                 width: int, shared: bool) -> dict:
+                 width: int, shared: bool, to_host: bool = False) -> dict:
   """``launch_shape``, or a ``ValueError`` naming what the kernel cannot
   take: too many planes for shared memory, too many view chunks for the
   grid, or a plane of 2^31 pixels or more."""
-  shape = launch_shape(views, num_planes, height, width, shared)
+  shape = launch_shape(views, num_planes, height, width, shared, to_host)
   if shape["smem_bytes"] > SMEM_LIMIT:
     raise ValueError(
         f"{name}: {num_planes} planes x {shape['view_chunk']} views exceed "
@@ -190,22 +183,18 @@ def sample_coords(homs: torch.Tensor, grid: torch.Tensor,
   return (xy + 0.5) / scale
 
 
-def plain_render(planes: torch.Tensor, homs: torch.Tensor,
-                 rows: tuple[int, int] | None = None) -> torch.Tensor:
+def plain_render(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   """The plain PyTorch version of the kernel, in the kernel's layout.
 
   Args:
     planes: ``[P, H, W, 4]`` (one scene shared by every view) or
       ``[V, P, H, W, 4]`` RGBA planes, back-to-front.
     homs: ``[V, P, 3, 3]`` target-pixel -> source-pixel homographies.
-    rows: ``(row0, row1)``: render only those output rows, as a band of
-      ``render_bands`` does; None renders every row.
 
   Returns:
-    ``[V, H, W, 3]`` (``[V, row1 - row0, W, 3]`` with ``rows``). One plane
-    at a time, so no warped-plane stack is held; each output element is the
-    same f32 expression the kernel evaluates, in the same order, whatever
-    rows are asked for.
+    ``[V, H, W, 3]``. One plane at a time, so no warped-plane stack is
+    held; each output element is the same f32 expression the kernel
+    evaluates, in the same order.
   """
   with _count_lock:
     plain_render.calls += 1
@@ -214,8 +203,6 @@ def plain_render(planes: torch.Tensor, homs: torch.Tensor,
   shared = planes.dim() == 4
   num_planes, h, w = planes.shape[-4], planes.shape[-3], planes.shape[-2]
   grid, scale = pixel_grid(h, w, planes.device)
-  if rows is not None:
-    grid = grid[rows[0]:rows[1]]
   out = None
   for p in range(num_planes):
     plane = planes[p] if shared else planes[:, p]
@@ -317,7 +304,7 @@ def _launch(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   lib = _build.load(KERNEL, _SIGNATURES)
   err = lib.mpi_render_fused(
       planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
-      height, width, view_stride, 0, height, dev.index,
+      height, width, view_stride, dev.index,
       torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
@@ -326,83 +313,59 @@ def _launch(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   return out
 
 
-def render_bands(planes: torch.Tensor, homs: torch.Tensor,
-                 frames: torch.Tensor, host: torch.Tensor,
-                 bands: list[tuple[int, int]], copy_stream=None,
-                 rendered=None, copy_marks=None) -> None:
-  """Render a flight in row bands and read each band back once rendered.
+def render_to_host(planes: torch.Tensor, homs: torch.Tensor,
+                   host: torch.Tensor) -> None:
+  """Render a flight straight into host memory. Forward only.
 
-  ``planes`` and ``homs`` are ``render_mpi_fused``'s; ``frames`` (on the
-  planes' device) and ``host`` are ``[V, H, W, 3]`` float32; ``bands`` are
-  ``(row0, row1)`` pairs that tile ``[0, H)`` in order. Forward only.
+  ``planes`` and ``homs`` are ``render_mpi_fused``'s; ``host`` is a
+  contiguous float32 ``[V, H, W, 3]`` CPU tensor. For CUDA planes it has to
+  be pinned: one launch of the kernel's write-through instance on the
+  current stream stores each composite into ``host`` through its device
+  mapping, so the frames cross the host link while the kernel renders and
+  no frames buffer or copy exists on the card. Nothing is synchronised:
+  ``host`` holds the frames once the stream has passed the launch, and
+  PyTorch's pinned allocator does not see the writes, so the caller keeps
+  ``host`` until then. The launch counts in ``render_to_host.launches`` and
+  in ``render_mpi_fused.launches``. The pixels are the device-output
+  launch's, to the bit.
 
-  On the card ``host`` is pinned, and one call into the kernel's library
-  enqueues, band by band, the kernel for the band's rows on the current
-  stream, an event, a wait for it on ``copy_stream`` and one strided copy
-  of the band's rows of every view into ``host`` on ``copy_stream``: the
-  copy engine reads band b back while the SMs render band b + 1, and no
-  host work (and no other thread: the call holds the interpreter lock)
-  comes between a band's launch and its copy. Each launch counts in
-  ``render_mpi_fused.launches``. ``rendered`` (a timing
-  ``torch.cuda.Event``) is recorded after the last band's launch and
-  ``copy_marks`` (2 per band) before and after each band's copy. PyTorch's
-  pinned allocator does not see these copies: the caller keeps ``host``
-  until ``copy_stream`` has passed them.
-
-  CPU tensors write ``plain_render``'s rows band by band into ``frames``
-  and copy them to ``host``. Each pixel is the expression the whole-frame
-  render computes for it, so banded frames equal whole ones to the bit.
+  CPU planes and homographies write ``plain_render`` into ``host``. Any
+  other buffer, and anything ``render_mpi_fused`` refuses, raises.
   """
-  views, num_planes = _check(planes, homs, "render_bands")
+  views, num_planes = _check(planes, homs, "render_to_host")
   height, width = planes.shape[-3], planes.shape[-2]
-  _check_float32("render_bands", {"frames": frames, "host": host})
-  for name, t in (("frames", frames), ("host", host)):
-    if tuple(t.shape) != (views, height, width, 3):
-      raise ValueError(f"render_bands: {name} must be [{views}, {height}, "
-                       f"{width}, 3], got {tuple(t.shape)}")
-  edges = [0] + [r1 for _, r1 in bands]
-  if (not bands or [r0 for r0, _ in bands] != edges[:-1]
-      or edges[-1] != height or any(a >= b for a, b in zip(edges, edges[1:]))):
-    raise ValueError(f"render_bands: bands {bands} must tile the rows "
-                     f"[0, {height}) in order")
-  if {t.device.type for t in (planes, homs, frames, host)} == {"cpu"}:
-    for row0, row1 in bands:
-      frames[:, row0:row1] = plain_render(planes, homs, rows=(row0, row1))
-      host[:, row0:row1] = frames[:, row0:row1]
+  _check_float32("render_to_host", {"host": host})
+  if tuple(host.shape) != (views, height, width, 3):
+    raise ValueError(f"render_to_host: host must be [{views}, {height}, "
+                     f"{width}, 3], got {tuple(host.shape)}")
+  if host.device.type != "cpu" or not host.is_contiguous():
+    raise ValueError("render_to_host: host must be a contiguous CPU tensor")
+  if planes.device.type == "cpu" and homs.device.type == "cpu":
+    host.copy_(plain_render(planes, homs))
     return
-  dev = _cuda_ready("render_bands", {"planes": planes, "homs": homs,
-                                     "frames": frames}, "planes")
-  if host.device.type != "cpu" or not host.is_pinned() \
-      or not host.is_contiguous():
-    raise ValueError("render_bands: host must be contiguous pinned memory")
-  if copy_stream is None:
-    raise ValueError("render_bands: the card's readback needs a copy_stream")
-  check_launch("render_bands", views, num_planes, height, width,
-               planes.dim() == 4)
-  marks = [] if copy_marks is None else list(copy_marks)
-  if marks and len(marks) != 2 * len(bands):
-    raise ValueError(f"render_bands: {len(marks)} copy marks for "
-                     f"{len(bands)} bands, not 2 a band")
-  # Record the events once, so that they exist; the call records them again
-  # where they belong.
-  for event in marks + ([rendered] if rendered is not None else []):
-    event.record(copy_stream)
+  if not host.is_pinned():
+    raise ValueError("render_to_host: the kernel writes only pinned host "
+                     "memory")
+  dev = _cuda_ready("render_to_host", {"planes": planes, "homs": homs},
+                    "planes")
+  check_launch("render_to_host", views, num_planes, height, width,
+               planes.dim() == 4, to_host=True)
   view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
   from mpi_vision_tpu_torch.kernels import _build
 
   lib = _build.load(KERNEL, _SIGNATURES)
-  err = lib.mpi_render_bands(
-      planes.data_ptr(), homs.data_ptr(), frames.data_ptr(), host.data_ptr(),
-      views, num_planes, height, width, view_stride,
-      (ctypes.c_int * len(edges))(*edges), len(bands), dev.index,
-      torch.cuda.current_stream(dev).cuda_stream, copy_stream.cuda_stream,
-      None if rendered is None else rendered.cuda_event,
-      (ctypes.c_void_p * len(marks))(*[e.cuda_event for e in marks])
-      if marks else None)
+  err = lib.mpi_render_to_host(
+      planes.data_ptr(), homs.data_ptr(), host.data_ptr(), views, num_planes,
+      height, width, view_stride, dev.index,
+      torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
-    raise RuntimeError(f"render_bands failed: CUDA error {err}")
+    raise RuntimeError(f"render_to_host failed: CUDA error {err}")
   with _count_lock:
-    render_mpi_fused.launches += len(bands)
+    render_to_host.launches += 1
+    render_mpi_fused.launches += 1
+
+
+render_to_host.launches = 0
 
 
 class _FusedRender(torch.autograd.Function):

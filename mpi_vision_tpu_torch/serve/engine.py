@@ -14,39 +14,35 @@ which the engine forwards.
 The dispatch API is a streaming pipeline:
 
   * ``submit(scene, poses)`` enqueues the pose upload and the render on
-    the engine's compute stream and the frame readback on its copy stream
-    (one of each a card), records a ``torch.cuda.Event`` behind them and
-    returns an ``InFlightBatch`` at once — no synchronise on the submit
-    path. Poses go up from a pinned host buffer; frames come back into a
-    pinned host buffer that belongs to that batch alone, so a later
-    batch's readback can never overwrite it. A bounded in-flight window
-    (``max_inflight``) backpressures submitters.
-  * Row bands: a ``fused_pallas`` frame large enough to be worth it
-    (``row_bands``: 4 bands at 1080p) renders in bands of rows, one
-    kernel launch each, and each band's rows are copied back on the copy
-    stream as soon as its launch is done, ordered by an event; one call
-    into the kernel's library enqueues it all
-    (``kernels/render_fused.render_bands``). The card's copy engine reads band b back
-    while its SMs render band b + 1, so a flight costs the card about its
-    readback plus a band's render, not the two end to end. The band count
-    follows the frame's rows and bytes and the method alone; every other
-    method, and a small frame, renders in one band, still read back on the
-    copy stream. A pixel is the same expression whatever band it lands in,
-    so banded frames equal whole ones to the bit.
+    the engine's compute stream (one a card), records a
+    ``torch.cuda.Event`` behind them and returns an ``InFlightBatch`` at
+    once — no synchronise on the submit path. Poses go up from a pinned
+    host buffer; frames land in a pinned host buffer that belongs to that
+    batch alone, so a later batch can never overwrite it. A bounded
+    in-flight window (``max_inflight``) backpressures submitters.
+  * Write-through (``writes_through``): a whole-scene ``fused_pallas``
+    flight renders straight into that pinned buffer. One launch of the
+    kernel (``kernels/render_fused.render_to_host``) stores each composite
+    over the host link as it is made, so the card keeps no frames buffer
+    and runs no copy: a flight costs it the longer of the render and the
+    link, not the two end to end. Tile crops, retargeted views and the
+    other methods render into a device buffer that the card's copy stream
+    reads back once the render is done. Both give the same pixels.
   * ``poll(handle)`` is the non-blocking readiness probe (``Event.query``).
   * ``wait(handle)`` is the ONE synchronization point: it synchronises the
     batch's event, hands back its frames, releases the window slot, and
     stamps the handle's phase timings. On the card those are what the
-    card did, from timing events on the two streams: ``h2d_s`` the pose
-    upload, ``compute_s`` the homographies and every band's kernel,
-    ``readback_s`` the band copies' own time (summed, so not the waits
-    between them), and ``readback_hidden_s`` the device time during which
-    the readback ran under the render, ``h2d_s + compute_s + readback_s``
-    less the span from the flight's start to its last copy's end (0 for
-    one band and on the CPU). The time a launch took to return on the host
-    is not a device time. They feed ``/metrics``' ``device_phase_seconds``
-    and the attribution ledger (its three phases; ``readback_hidden`` is
-    inside them, not beside them).
+    card did, from timing events on its streams: ``h2d_s`` the pose
+    upload, ``compute_s`` the homographies and the render (the
+    write-through's frames cross the link inside it), ``readback_s`` the
+    copy's own time (0 for a write-through flight, which runs none), and
+    ``readback_hidden_s``, the readback that ran under the render: 0, since
+    no flight's copy overlaps its own render. The time a launch took to
+    return on the host is not a device time. They feed ``/metrics``'
+    ``device_phase_seconds`` and the attribution ledger (its three phases;
+    ``readback_hidden`` is inside them, not beside them). Beside them the
+    timings count the flight's ``views`` (live and padded) and
+    ``views_written_through``.
   * ``abandon(handle)`` releases a handle's window slot without waiting.
 
 ``render_batch`` is ``submit`` + ``wait``. Completion workers call these
@@ -57,11 +53,12 @@ Sharded dispatch (``use_mesh``, the JAX engine's mesh path): the batch's
 views split evenly over the engine's devices, as
 ``parallel.mesh.render_views_sharded`` splits them; each shard renders on
 its device, on that device's stream, from that device's replica of the
-scene, and is read back straight into its slice of the batch's pinned
-host buffer, band by band on that device's copy stream — serving needs
-host frames, so no device-to-device gather. A device that repeats in the
-list (``[cuda:0, cuda:0]``) renders its shards one after the other on its
-one pair of streams. A replica lives on the
+scene, straight into its slice of the batch's pinned host buffer (or
+read back into it on that device's copy stream) — serving needs host
+frames, so no device-to-device gather; pinned memory is mapped into every
+card's address space. A device that repeats in the list
+(``[cuda:0, cuda:0]``) renders its shards one after the other on its
+streams. A replica lives on the
 ``BakedScene`` it copies, so it is dropped with it when the cache swaps
 or evicts that bake; the scene the cache holds is the first device's.
 
@@ -99,49 +96,20 @@ def _next_pow2(n: int) -> int:
   return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
 
 
-# Row bands (``row_bands``): a fused_pallas frame gets one band for each
-# BAND_BYTES of one view's f32 RGB frame, at most MAX_BANDS. Both come from
-# sweeps of 1, 2, 4 and 8 bands at 1, 4 and 8 views on an H100 (PERF.md).
-# At 1080p, 4 bands against 1 cut the card's busy time a flight by 24% at
-# one view and by 29-30% at four and eight. With four flights in the air,
-# 8 bands were slower than 4 at four and eight views, since every launch
-# adds its own tail. One flight at a time, the host-paced span from upload
-# to last copy grew 8% at one view, from host work, not card work. The 540p
-# rule of 2 rests on those spans alone: against 1 band, 2 cut the span 12%
-# at eight views and lengthened it 8% at one.
-BAND_BYTES = 2 << 20
-MAX_BANDS = 4
-
-
-def row_bands(height: int, width: int, method: str) -> list[tuple[int, int]]:
-  """The row bands a flight of ``height x width`` frames renders in.
-
-  ``(row0, row1)`` pairs that tile ``[0, height)`` once, in order, every
-  edge but the last on the kernel's 8-row tile. ``method="fused_pallas"``
-  frames get a band per ``BAND_BYTES`` of one view's frame, at most
-  ``MAX_BANDS``, each at least one tile; smaller frames and every other
-  method take one band.
-  """
-  n = 1
-  if method == "fused_pallas":
-    n = max(1, min(MAX_BANDS, height * width * 12 // BAND_BYTES))
-  return split_rows(height, n)
-
-
-def split_rows(height: int, n: int) -> list[tuple[int, int]]:
-  """``[0, height)`` in ``n`` bands (fewer where it has fewer 8-row tiles)
-  of whole tiles, as even as the tiles allow, the last ending at
-  ``height``."""
-  tile = render_fused.TILE[1]
-  tiles = -(-height // tile)
-  n = max(1, min(n, tiles))
-  edges = [min(height, tile * (tiles * b // n)) for b in range(n + 1)]
-  return list(zip(edges[:-1], edges[1:]))
+def writes_through(scene: BakedScene, method: str) -> bool:
+  """Whether a card renders ``scene``'s flights straight into the
+  flight's pinned host buffer (``kernels/render_fused.render_to_host``):
+  whole-scene bakes under ``fused_pallas``. A tile crop and a retargeted
+  (L2) view render through ``render_views``, and the plain methods have
+  no kernel: they render into a device buffer that is then copied."""
+  return (method == "fused_pallas" and scene.src_window is None
+          and scene.out_hw is None)
 
 
 def _copies_done(handle) -> bool:
-  """Whether the card has passed ``handle``'s end event; a failed device
-  writes nothing more, so an error reads as done."""
+  """Whether the card has passed ``handle``'s end event, after which
+  nothing writes its host buffer; a failed device writes nothing more, so
+  an error reads as done."""
   try:
     return bool(handle.event.query())
   except RuntimeError:
@@ -172,20 +140,21 @@ class InFlightBatch:
   ``abandon``, whichever runs first.
   """
 
-  __slots__ = ("out", "event", "marks", "bands", "views", "t_submit",
-               "h2d_enqueue_s", "timings", "_engine", "_released", "_lock")
+  __slots__ = ("out", "event", "marks", "written_through", "views",
+               "t_submit", "h2d_enqueue_s", "timings", "_engine",
+               "_released", "_lock")
 
   def __init__(self, engine: "RenderEngine", out: torch.Tensor, event,
                views: int, t_submit: float, h2d_enqueue_s: float,
-               marks: tuple | None = None, bands: int = 1):
+               marks: tuple | None = None, written_through: bool = False):
     self.out = out
     self.event = event
-    # Timing events (CUDA only): on the compute stream before the pose
-    # upload, after it and after the last band's render; on the copy
-    # stream after the last band's copy (the first card's end event); then
-    # a (before, after) pair around each band's copy on the first card.
+    # Timing events (CUDA only), on the first card: on the compute stream
+    # before the pose upload, after it and after the render; then, for a
+    # flight that is copied, a (before, after) pair around each copy on the
+    # copy stream.
     self.marks = marks
-    self.bands = bands
+    self.written_through = written_through
     self.views = views
     self.t_submit = t_submit
     self.h2d_enqueue_s = h2d_enqueue_s
@@ -206,8 +175,9 @@ class InFlightBatch:
   def abandon(self) -> None:
     """Release the slot without waiting and count the abandonment on the
     engine that issued this handle. No-op on an already-released handle.
-    The engine keeps the host buffer until the card has written it: band
-    copies write pinned memory that PyTorch's allocator does not track."""
+    The engine keeps the host buffer until the card has written it: the
+    write-through kernel and the copies write pinned memory that PyTorch's
+    allocator does not track."""
     if self.release_slot():
       self._engine._count_abandoned()
       self._engine._park(self)
@@ -296,9 +266,9 @@ class RenderEngine:
     # The devices a batch's shards render on, by shard; one stream per
     # distinct card.
     self._shard_devices = self.devices if self.use_mesh else [self.device]
-    # A compute stream and a copy stream per distinct card: a flight's
-    # bands render on the first while the second reads the finished ones
-    # back.
+    # A compute stream and a copy stream per distinct card: flights render
+    # on the first, and the second copies the frames of flights that do
+    # not write through.
     self._streams = self._copy_streams = None
     if self.device.type == "cuda":
       cards = list(dict.fromkeys(self._shard_devices))
@@ -314,6 +284,10 @@ class RenderEngine:
     self.tracer = tracer
     self.dispatches = 0
     self.abandoned = 0
+    # Views rendered, live and padded, and those written straight into
+    # host memory (``writes_through``).
+    self.views_rendered = 0
+    self.views_written_through = 0
 
   def batch_bucket(self, v: int) -> int:
     """Padded batch size dispatched for a logical batch of ``v``."""
@@ -345,8 +319,9 @@ class RenderEngine:
       self.abandoned += 1
 
   def _park(self, handle: InFlightBatch) -> None:
-    """Hold an abandoned handle's host buffer until its copies end, so the
-    pinned allocator cannot hand it out while the card still writes it."""
+    """Hold an abandoned handle's host buffer until the card has passed its
+    end event, so the pinned allocator cannot hand it out while the card
+    still writes it."""
     if handle.event is None:
       return
     with self._inflight_lock:
@@ -390,16 +365,14 @@ class RenderEngine:
   def submit(self, scene: BakedScene, poses) -> InFlightBatch:
     """Dispatch ``poses [V, 4, 4]`` against ``scene`` without waiting.
 
-    On a card, every card the batch uses gets its work on two streams. The
-    compute stream uploads the poses, computes the homographies once and
-    renders the frames into one device buffer, band by band
-    (``row_bands``: four at 1080p under ``fused_pallas``); after
-    each band it records an event, and the copy stream waits on it and
-    copies that band's rows of every view into the batch's pinned host
-    buffer. So band b's readback runs on the copy engine while band b + 1
-    renders on the SMs. The batch's end event is recorded on the copy
-    stream, after the last band's copy. ``wait`` reports, as
-    ``readback_hidden_s``, how much of the readback ran under the render.
+    On a card, the compute stream of every card the batch uses uploads the
+    poses and renders. A write-through flight (``writes_through``)
+    computes the homographies once and launches the kernel into its slice
+    of the batch's pinned host buffer: the frames cross the host link as
+    they are composited, and the batch's end event follows the render on
+    the compute stream. Any other flight renders into a device buffer,
+    which the copy stream copies into the pinned buffer once the render is
+    done; the end event follows the copy.
 
     Blocks only when ``max_inflight`` handles are already un-waited.
     Errors the device raises asynchronously surface at ``wait``.
@@ -418,13 +391,14 @@ class RenderEngine:
     # Shard i renders views [i * k, (i + 1) * k) on its device.
     shards = list(enumerate(self._shard_devices))
     k = bucket // len(shards)
-    # The copy streams that may write the batch's pinned host buffer.
-    copying = []
+    # The streams that may write the batch's pinned host buffer.
+    writing = []
+    through = False
     self._acquire_slot()
     try:
       with self.tracer.span("engine/submit"):
         t0 = self._clock()
-        marks, n_bands = None, 1
+        marks = None
         if self._streams is None:
           t1 = self._clock()
           poses_t = torch.tensor(poses)
@@ -434,11 +408,12 @@ class RenderEngine:
           out, event = (frames[0] if len(frames) == 1
                         else torch.cat(frames)), None
         else:
+          through = writes_through(scene, self.method)
           first = self._streams[self.device]
           # Timing marks on the first card: the flight's start, the poses
-          # uploaded, the last band rendered, the last copy done; then a
-          # (start, end) pair around each band copy.
-          marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          # uploaded, the render done; then a (start, end) pair around
+          # each copy.
+          marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
           host_poses = torch.empty(poses.shape, dtype=torch.float32,
                                    pin_memory=True)
           host_poses.numpy()[...] = poses
@@ -454,91 +429,71 @@ class RenderEngine:
           marks[1].record(first)
           t1 = self._clock()
           height, width = scene.planes.shape[1:3]
-          # A tile crop or a retargeted view renders whole: the plain
-          # methods take one band, and fused_pallas refuses them.
-          bands = [(0, height)]
-          if scene.src_window is None and scene.out_hw is None:
-            bands = row_bands(height, width, self.method)
-          reps, homs, frames = [], [], []
+          out = (torch.empty((bucket, height, width, 3), dtype=torch.float32,
+                             pin_memory=True) if through else None)
+          frames = []
           for i, dev in shards:
             stream = self._streams[dev]
             with torch.cuda.device(dev), torch.cuda.stream(stream):
               rep = self._replica(scene, dev)
               # The cache may evict the scene while this batch still reads
               # it on the compute stream: keep its memory from being reused
-              # until the stream has passed this point. The copy stream
-              # reads only the frames buffer.
+              # until the stream has passed this point.
               for t in (rep.planes, rep.depths, rep.intrinsics,
                         rep.tgt_intrinsics):
                 if t is not None:
                   t.record_stream(stream)
-              reps.append(rep)
-              if len(bands) > 1:
-                homs.append(render.views_homographies(
+              if through:
+                homs = render.views_homographies(
                     poses_dev[i], rep.depths, rep.intrinsics, height, width,
-                    self.convention))
-                frames.append(torch.empty((k, height, width, 3),
-                                          dtype=torch.float32, device=dev))
-              else:
-                frames.append(self._render(rep, poses_dev[i]))
-          out = torch.empty((bucket,) + tuple(frames[0].shape[1:]),
-                            dtype=frames[0].dtype, pin_memory=True)
-          # The first card's timing marks: its compute ends with its last
-          # shard's render; a (before, after) pair brackets each copy.
-          rendered, copy_marks = None, []
-          for i, dev in shards:
-            stream, copy = self._streams[dev], self._copy_streams[dev]
-            timed = dev == self.device
-            pairs = ([torch.cuda.Event(enable_timing=True)
-                      for _ in range(2 * len(bands))] if timed else None)
-            done = torch.cuda.Event(enable_timing=True)
-            host = out[i * k:(i + 1) * k]
-            copying.append(copy)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-              if len(bands) > 1:
+                    self.convention)
+                writing.append(stream)
                 # The range render_mpi's fused launch carries.
                 with named_scope("render/warp_composite"):
-                  render_fused.render_bands(reps[i].planes, homs[i],
-                                            frames[i], host, bands, copy,
-                                            done, pairs)
+                  render_fused.render_to_host(rep.planes, homs,
+                                              out[i * k:(i + 1) * k])
               else:
-                done.record(stream)
-                copy.wait_event(done)
-                with torch.cuda.stream(copy):
-                  if timed:
-                    pairs[0].record(copy)
-                  host.copy_(frames[i], non_blocking=True)
-                  if timed:
-                    pairs[1].record(copy)
-            # The allocator must not hand the frames buffer to later work
-            # on the compute stream before its copies have read it.
-            frames[i].record_stream(copy)
-            if timed:
-              rendered = done
-              copy_marks += pairs
-          marks = tuple(marks + [rendered, copy_marks[-1]] + copy_marks)
-          ends = [marks[3]]
-          for dev, copy in self._copy_streams.items():
-            if dev != self.device:
-              end = torch.cuda.Event()
-              end.record(copy)
-              ends.append(end)
-          event = ends[0] if len(ends) == 1 else _Events(ends)
-          n_bands = len(bands)
+                frames.append(self._render(rep, poses_dev[i]))
+          marks[2].record(first)
+          # The streams whose last work ends the batch, one a card.
+          ends = self._streams
+          if not through:
+            ends = self._copy_streams
+            out = torch.empty((bucket,) + tuple(frames[0].shape[1:]),
+                              dtype=frames[0].dtype, pin_memory=True)
+            for (i, dev), f in zip(shards, frames):
+              copy = self._copy_streams[dev]
+              copy.wait_stream(self._streams[dev])
+              writing.append(copy)
+              pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              with torch.cuda.device(dev), torch.cuda.stream(copy):
+                pair[0].record(copy)
+                out[i * k:(i + 1) * k].copy_(f, non_blocking=True)
+                pair[1].record(copy)
+              if dev == self.device:
+                marks += pair
+              # The allocator must not hand the frames buffer to later work
+              # on the compute stream before the copy has read it.
+              f.record_stream(copy)
+          events = [s.record_event() for s in ends.values()]
+          event = events[0] if len(events) == 1 else _Events(events)
+          marks = tuple(marks)
     except BaseException:
-      # Band copies already enqueued write pinned memory that PyTorch's
-      # host allocator does not track: let them end before ``out`` goes
-      # back to it.
-      for copy in copying:
+      # Write-through launches and copies already enqueued write pinned
+      # memory that PyTorch's host allocator does not track: let them end
+      # before ``out`` goes back to it.
+      for stream in writing:
         try:
-          copy.synchronize()
+          stream.synchronize()
         except RuntimeError:  # a failed device writes nothing more
           pass
       self._release_slot()
       raise
     with self._inflight_lock:  # concurrent submitters: don't drop counts
       self.dispatches += 1
-    return InFlightBatch(self, out, event, v, t0, t1 - t0, marks, n_bands)
+      self.views_rendered += bucket
+      self.views_written_through += bucket if through else 0
+    return InFlightBatch(self, out, event, v, t0, t1 - t0, marks, through)
 
   def poll(self, handle: InFlightBatch) -> bool:
     """Non-blocking: is ``handle``'s result ready to read?"""
@@ -561,19 +516,15 @@ class RenderEngine:
       handle.release_slot()
     if handle.marks is not None:
       # What the first card did, from the streams' timing events: the pose
-      # upload, the render (homographies and every band's kernel), the
-      # frame readback into pinned memory (the band copies' own time), and
-      # how much of the readback ran under the render: the three less the
-      # flight's span from its start to its last copy's end.
+      # upload, the render (homographies and kernel; a write-through's
+      # frames cross the link inside it), and the copy into pinned memory
+      # (its own time; none for a write-through).
       m = handle.marks
-      h2d, compute, span = (m[a].elapsed_time(m[b]) / 1e3
-                            for a, b in ((0, 1), (1, 2), (0, 3)))
-      readback = sum(a.elapsed_time(b)
-                     for a, b in zip(m[4::2], m[5::2])) / 1e3
       handle.timings = {
-          "h2d_s": h2d, "compute_s": compute, "readback_s": readback,
-          "readback_hidden_s": (max(h2d + compute + readback - span, 0.0)
-                                if handle.bands > 1 else 0.0),
+          "h2d_s": m[0].elapsed_time(m[1]) / 1e3,
+          "compute_s": m[1].elapsed_time(m[2]) / 1e3,
+          "readback_s": sum(a.elapsed_time(b)
+                            for a, b in zip(m[3::2], m[4::2])) / 1e3,
       }
     else:
       # The CPU renders synchronously inside submit: compute is submit to
@@ -583,8 +534,12 @@ class RenderEngine:
           "compute_s": max((t1 - handle.t_submit) - handle.h2d_enqueue_s,
                            0.0),
           "readback_s": t2 - t1,
-          "readback_hidden_s": 0.0,
       }
+    # No flight's copy runs under its own render.
+    bucket = handle.out.shape[0]
+    handle.timings.update(
+        readback_hidden_s=0.0, views=bucket,
+        views_written_through=bucket if handle.written_through else 0)
     return host[:handle.views]
 
   def abandon(self, handle: InFlightBatch) -> None:
@@ -629,4 +584,6 @@ class RenderEngine:
         "dispatches": self.dispatches,
         "max_inflight": self.max_inflight,
         "abandoned": self.abandoned,
+        "views_rendered": self.views_rendered,
+        "views_written_through": self.views_written_through,
     }

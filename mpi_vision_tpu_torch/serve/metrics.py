@@ -86,6 +86,11 @@ class ServeMetrics:
       # three, not beside them).
       self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0,
                             "readback_hidden": 0.0}
+      # Views the engine rendered (live and padded), and those it wrote
+      # straight into host memory with no copy (serve/engine.py
+      # ``writes_through``).
+      self.views_rendered = 0
+      self.views_written_through = 0
       # Failure accounting: without these, failed renders vanish from the
       # snapshot entirely (record_request fires only on success) and
       # /stats reads "healthy" straight through an outage.
@@ -443,9 +448,10 @@ class ServeMetrics:
     """One device dispatch of ``size`` coalesced requests.
 
     ``phases`` is the engine's per-dispatch phase split (keys ``h2d_s``,
-    ``compute_s``, ``readback_s``, ``readback_hidden_s``), accumulated
-    into lifetime totals so ``/metrics`` can say where device time
-    actually goes.
+    ``compute_s``, ``readback_s``, ``readback_hidden_s``) with its view
+    counts (``views``, ``views_written_through``), accumulated into
+    lifetime totals so ``/metrics`` can say where device time actually
+    goes.
     """
     with self._lock:
       self.batches += 1
@@ -459,6 +465,9 @@ class ServeMetrics:
           self._hist_phase[key].record(phase_s)
         self.phase_seconds["readback_hidden"] += float(
             phases.get("readback_hidden_s", 0.0))
+        self.views_rendered += int(phases.get("views", 0))
+        self.views_written_through += int(
+            phases.get("views_written_through", 0))
 
   def record_tiles(self, touched: int, rendered: int, total: int,
                    planes: int | None = None) -> None:
@@ -524,6 +533,8 @@ class ServeMetrics:
           "device_render_seconds": round(self.render_seconds, 3),
           "device_phase_seconds": {k: round(v, 3)
                                    for k, v in self.phase_seconds.items()},
+          "views": {"rendered": self.views_rendered,
+                    "written_through": self.views_written_through},
           "queue_depth": self._queue_depth,
           "errors": {
               "transient": self.errors_transient,

@@ -660,8 +660,8 @@ class MicroBatcher:
     """Anchor the engine's phase durations inside the attempt's render
     window: upload then compute front-to-back, and the readback starting
     ``readback_hidden_s`` before the compute's end, so that it overlaps the
-    compute by what ran under it (a banded flight reads its first bands
-    back while the last ones render). Under overlap,
+    compute by what ran under it (an engine reports 0 where no copy runs
+    under its flight's render). Under overlap,
     "compute" includes device queue wait behind earlier flights — the
     honest per-flight number."""
     if recorder is None or not timings:

@@ -5,9 +5,9 @@ JAX modules: the same ``stats`` dict through both ``serve_registry``s gives
 the same text, letter for letter; the parser, the exemplar stripper, the
 pool aggregator and the TTL cache (fake clock) agree; ``SloTracker``'s
 ``mpi_slo_*`` families are JAX's on one scripted trace. The port's
-``RenderService`` on the CPU exposes at ``/metrics`` exactly the JAX
-service's ``mpi_*`` family set for the same traffic, and its render
-counters equal ``/stats``.
+``RenderService`` on the CPU exposes at ``/metrics`` the JAX service's
+``mpi_*`` family set for the same traffic, plus the engine's two view
+counters, and its render counters equal ``/stats``.
 """
 
 import json
@@ -51,6 +51,12 @@ def _pose(i):
   pose = np.eye(4, dtype=np.float32)
   pose[0, 3] = 0.01 * i
   return pose
+
+
+# The port engine's view counters (serve/engine.py's write-through), which
+# the JAX engine has no counterpart of.
+VIEW_FAMILIES = {"mpi_serve_views_rendered_total",
+                 "mpi_serve_views_written_through_total"}
 
 
 def _families(text: str) -> set:
@@ -104,14 +110,15 @@ def served():
 
 
 def test_same_stats_dict_renders_identical_text(served):
-  """Identical text, but for the port engine's one extra device phase: the
-  readback that ran under the render, one sample right after readback's,
-  emitted only where the stats report it."""
+  """Identical text, but for the port engine's extras, emitted only where
+  the stats report them: one more device phase, the readback that ran
+  under the render, one sample right after readback's; and the two view
+  counters right after the phases, each a HELP, a TYPE and one sample."""
   extra = "mpi_serve_device_phase_seconds_total{phase=\"readback_hidden\"}"
   for name in ("port", "jax"):
     stats, hist = served[name]["stats"], served[name]["hist"]
     hidden = "readback_hidden" in stats["device_phase_seconds"]
-    assert hidden == (name == "port")
+    assert hidden == (name == "port") == ("views" in stats)
     for args in ((stats, hist), (stats,)):
       got = tprom.render_serve_metrics(*args).splitlines()
       want = jprom.render_serve_metrics(*args).splitlines()
@@ -119,14 +126,25 @@ def test_same_stats_dict_renders_identical_text(served):
         at = [i for i, line in enumerate(got) if line.startswith(extra)]
         assert len(at) == 1 and got[at[0] - 1].startswith(
             "mpi_serve_device_phase_seconds_total{phase=\"readback\"}")
-        del got[at[0]]
+        views = got[at[0] + 1:at[0] + 7]
+        assert views == [
+            "# HELP mpi_serve_views_rendered_total Views the engine "
+            "rendered, live and padded.",
+            "# TYPE mpi_serve_views_rendered_total counter",
+            f"mpi_serve_views_rendered_total {stats['views']['rendered']}",
+            "# HELP mpi_serve_views_written_through_total Views rendered "
+            "straight into host memory, with no copy.",
+            "# TYPE mpi_serve_views_written_through_total counter",
+            "mpi_serve_views_written_through_total "
+            f"{stats['views']['written_through']}"], views
+        del got[at[0]:at[0] + 7]
       assert got == want, name
 
 
 def test_service_metrics_family_set_equals_jax(served):
   port, jax = _families(served["port"]["text"]), \
       _families(served["jax"]["text"])
-  assert port == jax
+  assert port == jax | VIEW_FAMILIES
   assert all(f.startswith("mpi_") for f in port)
   for fam in ("mpi_serve_requests_total", "mpi_serve_request_latency_seconds",
               "mpi_serve_request_latency_nativehist", "mpi_slo_quantile",
