@@ -166,6 +166,18 @@ def render_views(
                     src_window=src_window)
 
 
+def _kernel_homographies(tgt_pose: torch.Tensor, depths: torch.Tensor,
+                         intrinsics: torch.Tensor, height: int, width: int,
+                         convention: Convention) -> torch.Tensor:
+  """The fused kernel's homographies for ``[V, 4, 4]`` poses and
+  ``[V, 3, 3]`` intrinsics: ``[V, P, 3, 3]``, contiguous."""
+  from mpi_vision_tpu_torch.kernels import render_fused
+  with named_scope("render/homographies"):
+    homs = render_fused.pixel_homographies(
+        tgt_pose, depths, intrinsics, height, width, convention)  # [P,V,3,3]
+    return homs.transpose(0, 1).contiguous()
+
+
 def views_homographies(
     tgt_poses: torch.Tensor,
     depths: torch.Tensor,
@@ -180,11 +192,8 @@ def views_homographies(
   serving engine launches the write-through kernel on them
   (``kernels/render_fused.render_to_host``)."""
   k = intrinsics.unsqueeze(0).expand(tgt_poses.shape[0], 3, 3)
-  from mpi_vision_tpu_torch.kernels import render_fused
-  with named_scope("render/homographies"):
-    homs = render_fused.pixel_homographies(
-        tgt_poses, depths, k, height, width, convention)  # [P, V, 3, 3]
-  return homs.transpose(0, 1).contiguous()
+  return _kernel_homographies(tgt_poses, depths, k, height, width,
+                              convention)
 
 
 def render_mpi(
@@ -247,9 +256,8 @@ def render_mpi(
           "src_window (cropped sources); use 'pallas' or a plain method "
           "('fused'/'scan').")
     from mpi_vision_tpu_torch.kernels import render_fused
-    with named_scope("render/homographies"):
-      homs = render_fused.pixel_homographies(
-          tgt_pose, depths, intrinsics, h, w, convention)  # [P, B, 3, 3]
+    homs = _kernel_homographies(tgt_pose, depths, intrinsics, h, w,
+                                convention)               # [B, P, 3, 3]
     batched = planes.movedim(0, 1)                        # [B, P, H, W, 4]
     if batched.shape[0] == 1 or batched.stride(0) == 0:
       # One scene broadcast across the batch (render_views): hand the
@@ -257,8 +265,7 @@ def render_mpi(
       # this is its resident [P, H, W, 4] buffer, not a copy.
       batched = batched[0]
     with named_scope("render/warp_composite"):
-      return render_fused.render_mpi_fused(
-          batched.contiguous(), homs.transpose(0, 1).contiguous())
+      return render_fused.render_mpi_fused(batched.contiguous(), homs)
 
   if src_window is not None:
     src_window = tuple(int(v) for v in src_window)

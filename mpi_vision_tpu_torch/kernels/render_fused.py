@@ -285,32 +285,44 @@ def _check(planes: torch.Tensor, homs: torch.Tensor,
   return views, num_planes
 
 
+def _run_kernel(name: str, planes: torch.Tensor, homs: torch.Tensor,
+                views: int, num_planes: int,
+                host: torch.Tensor | None = None) -> torch.Tensor:
+  """One launch of the kernel on the current stream of the planes' card,
+  for wrapper ``name`` (the errors it raises name it): the device-output
+  instance into a new device buffer, or, given pinned ``host``, the
+  write-through instance into it (``render_to_host``). Returns the buffer
+  written; counts the launch."""
+  dev = _cuda_ready(name, {"planes": planes, "homs": homs}, "planes")
+  height, width = planes.shape[-3], planes.shape[-2]
+  to_host = host is not None
+  check_launch(name, views, num_planes, height, width, planes.dim() == 4,
+               to_host=to_host)
+  out = host if to_host else torch.empty((views, height, width, 3),
+                                         dtype=torch.float32, device=dev)
+  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
+  from mpi_vision_tpu_torch.kernels import _build
+
+  lib = _build.load(KERNEL, _SIGNATURES)
+  entry = lib.mpi_render_to_host if to_host else lib.mpi_render_fused
+  err = entry(planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views,
+              num_planes, height, width, view_stride, dev.index,
+              torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+  with _count_lock:
+    render_mpi_fused.launches += 1
+    render_to_host.launches += int(to_host)
+  return out
+
+
 def _launch(planes: torch.Tensor, homs: torch.Tensor) -> torch.Tensor:
   """The forward: the kernel for CUDA tensors, the plain version for CPU
   tensors, a raise for anything else (see ``render_mpi_fused``)."""
   views, num_planes = _check(planes, homs)
   if planes.device.type == "cpu" and homs.device.type == "cpu":
     return plain_render(planes, homs)
-  dev = _cuda_ready("render_mpi_fused", {"planes": planes, "homs": homs},
-                    "planes")
-  height, width = planes.shape[-3], planes.shape[-2]
-  check_launch("render_mpi_fused", views, num_planes, height, width,
-               planes.dim() == 4)
-  out = torch.empty((views, height, width, 3), dtype=torch.float32,
-                    device=dev)
-  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
-  from mpi_vision_tpu_torch.kernels import _build
-
-  lib = _build.load(KERNEL, _SIGNATURES)
-  err = lib.mpi_render_fused(
-      planes.data_ptr(), homs.data_ptr(), out.data_ptr(), views, num_planes,
-      height, width, view_stride, dev.index,
-      torch.cuda.current_stream(dev).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"render_fused kernel launch failed: CUDA error {err}")
-  with _count_lock:
-    render_mpi_fused.launches += 1
-  return out
+  return _run_kernel("render_mpi_fused", planes, homs, views, num_planes)
 
 
 def render_to_host(planes: torch.Tensor, homs: torch.Tensor,
@@ -346,23 +358,7 @@ def render_to_host(planes: torch.Tensor, homs: torch.Tensor,
   if not host.is_pinned():
     raise ValueError("render_to_host: the kernel writes only pinned host "
                      "memory")
-  dev = _cuda_ready("render_to_host", {"planes": planes, "homs": homs},
-                    "planes")
-  check_launch("render_to_host", views, num_planes, height, width,
-               planes.dim() == 4, to_host=True)
-  view_stride = 0 if planes.dim() == 4 else num_planes * height * width * 4
-  from mpi_vision_tpu_torch.kernels import _build
-
-  lib = _build.load(KERNEL, _SIGNATURES)
-  err = lib.mpi_render_to_host(
-      planes.data_ptr(), homs.data_ptr(), host.data_ptr(), views, num_planes,
-      height, width, view_stride, dev.index,
-      torch.cuda.current_stream(dev).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"render_to_host failed: CUDA error {err}")
-  with _count_lock:
-    render_to_host.launches += 1
-    render_mpi_fused.launches += 1
+  _run_kernel("render_to_host", planes, homs, views, num_planes, host)
 
 
 render_to_host.launches = 0

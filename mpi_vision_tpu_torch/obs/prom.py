@@ -194,21 +194,6 @@ def serve_registry(stats: dict,
       "Device render time split by phase (h2d / compute / readback).")
   for phase in ("h2d", "compute", "readback"):
     phase_m.sample(phases.get(phase, 0.0), {"phase": phase})
-  # The part of readback that ran under compute, where the engine reports
-  # it: inside the three, not beside them.
-  if "readback_hidden" in phases:
-    phase_m.sample(phases["readback_hidden"], {"phase": "readback_hidden"})
-  # The engine's views rendered (live and padded), and those of them the
-  # kernel wrote straight into host memory (serve/engine.py's
-  # write-through), where the stats carry them.
-  views = stats.get("views")
-  if views is not None:
-    reg.counter(p + "views_rendered_total",
-                "Views the engine rendered, live and padded.",
-                views.get("rendered", 0))
-    reg.counter(p + "views_written_through_total",
-                "Views rendered straight into host memory, with no copy.",
-                views.get("written_through", 0))
   errors = stats.get("errors") or {}
   err_m = reg.counter(
       p + "errors_total",

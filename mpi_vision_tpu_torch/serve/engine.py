@@ -31,18 +31,14 @@ The dispatch API is a streaming pipeline:
   * ``poll(handle)`` is the non-blocking readiness probe (``Event.query``).
   * ``wait(handle)`` is the ONE synchronization point: it synchronises the
     batch's event, hands back its frames, releases the window slot, and
-    stamps the handle's phase timings. On the card those are what the
-    card did, from timing events on its streams: ``h2d_s`` the pose
-    upload, ``compute_s`` the homographies and the render (the
-    write-through's frames cross the link inside it), ``readback_s`` the
-    copy's own time (0 for a write-through flight, which runs none), and
-    ``readback_hidden_s``, the readback that ran under the render: 0, since
-    no flight's copy overlaps its own render. The time a launch took to
-    return on the host is not a device time. They feed ``/metrics``'
-    ``device_phase_seconds`` and the attribution ledger (its three phases;
-    ``readback_hidden`` is inside them, not beside them). Beside them the
-    timings count the flight's ``views`` (live and padded) and
-    ``views_written_through``.
+    stamps the handle's phase timings, the JAX engine's three. On the card
+    those are what the card did, from timing events on its streams:
+    ``h2d_s`` the pose upload, ``compute_s`` the homographies and the
+    render (the write-through's frames cross the link inside it), and
+    ``readback_s`` the copy's own time (0 for a write-through flight,
+    which runs none). The time a launch took to return on the host is not
+    a device time. They feed ``/metrics``' ``device_phase_seconds`` and
+    the attribution ledger.
   * ``abandon(handle)`` releases a handle's window slot without waiting.
 
 ``render_batch`` is ``submit`` + ``wait``. Completion workers call these
@@ -140,13 +136,12 @@ class InFlightBatch:
   ``abandon``, whichever runs first.
   """
 
-  __slots__ = ("out", "event", "marks", "written_through", "views",
-               "t_submit", "h2d_enqueue_s", "timings", "_engine",
-               "_released", "_lock")
+  __slots__ = ("out", "event", "marks", "views", "t_submit",
+               "h2d_enqueue_s", "timings", "_engine", "_released", "_lock")
 
   def __init__(self, engine: "RenderEngine", out: torch.Tensor, event,
                views: int, t_submit: float, h2d_enqueue_s: float,
-               marks: tuple | None = None, written_through: bool = False):
+               marks: tuple | None = None):
     self.out = out
     self.event = event
     # Timing events (CUDA only), on the first card: on the compute stream
@@ -154,7 +149,6 @@ class InFlightBatch:
     # flight that is copied, a (before, after) pair around each copy on the
     # copy stream.
     self.marks = marks
-    self.written_through = written_through
     self.views = views
     self.t_submit = t_submit
     self.h2d_enqueue_s = h2d_enqueue_s
@@ -284,10 +278,6 @@ class RenderEngine:
     self.tracer = tracer
     self.dispatches = 0
     self.abandoned = 0
-    # Views rendered, live and padded, and those written straight into
-    # host memory (``writes_through``).
-    self.views_rendered = 0
-    self.views_written_through = 0
 
   def batch_bucket(self, v: int) -> int:
     """Padded batch size dispatched for a logical batch of ``v``."""
@@ -393,7 +383,6 @@ class RenderEngine:
     k = bucket // len(shards)
     # The streams that may write the batch's pinned host buffer.
     writing = []
-    through = False
     self._acquire_slot()
     try:
       with self.tracer.span("engine/submit"):
@@ -491,9 +480,7 @@ class RenderEngine:
       raise
     with self._inflight_lock:  # concurrent submitters: don't drop counts
       self.dispatches += 1
-      self.views_rendered += bucket
-      self.views_written_through += bucket if through else 0
-    return InFlightBatch(self, out, event, v, t0, t1 - t0, marks, through)
+    return InFlightBatch(self, out, event, v, t0, t1 - t0, marks)
 
   def poll(self, handle: InFlightBatch) -> bool:
     """Non-blocking: is ``handle``'s result ready to read?"""
@@ -535,11 +522,6 @@ class RenderEngine:
                            0.0),
           "readback_s": t2 - t1,
       }
-    # No flight's copy runs under its own render.
-    bucket = handle.out.shape[0]
-    handle.timings.update(
-        readback_hidden_s=0.0, views=bucket,
-        views_written_through=bucket if handle.written_through else 0)
     return host[:handle.views]
 
   def abandon(self, handle: InFlightBatch) -> None:
@@ -584,6 +566,4 @@ class RenderEngine:
         "dispatches": self.dispatches,
         "max_inflight": self.max_inflight,
         "abandoned": self.abandoned,
-        "views_rendered": self.views_rendered,
-        "views_written_through": self.views_written_through,
     }

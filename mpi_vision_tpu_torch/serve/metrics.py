@@ -81,16 +81,8 @@ class ServeMetrics:
       self.batches = 0
       self.render_seconds = 0.0
       # Device-phase split of render_seconds (InFlightBatch.timings):
-      # host->device transfer / compute / device->host readback, and the
-      # part of the readback that ran under the compute (inside those
-      # three, not beside them).
-      self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0,
-                            "readback_hidden": 0.0}
-      # Views the engine rendered (live and padded), and those it wrote
-      # straight into host memory with no copy (serve/engine.py
-      # ``writes_through``).
-      self.views_rendered = 0
-      self.views_written_through = 0
+      # host->device transfer / compute / device->host readback.
+      self.phase_seconds = {"h2d": 0.0, "compute": 0.0, "readback": 0.0}
       # Failure accounting: without these, failed renders vanish from the
       # snapshot entirely (record_request fires only on success) and
       # /stats reads "healthy" straight through an outage.
@@ -448,10 +440,8 @@ class ServeMetrics:
     """One device dispatch of ``size`` coalesced requests.
 
     ``phases`` is the engine's per-dispatch phase split (keys ``h2d_s``,
-    ``compute_s``, ``readback_s``, ``readback_hidden_s``) with its view
-    counts (``views``, ``views_written_through``), accumulated into
-    lifetime totals so ``/metrics`` can say where device time actually
-    goes.
+    ``compute_s``, ``readback_s``), accumulated into lifetime totals so
+    ``/metrics`` can say where device time actually goes.
     """
     with self._lock:
       self.batches += 1
@@ -463,11 +453,6 @@ class ServeMetrics:
           phase_s = float(phases.get(key + "_s", 0.0))
           self.phase_seconds[key] += phase_s
           self._hist_phase[key].record(phase_s)
-        self.phase_seconds["readback_hidden"] += float(
-            phases.get("readback_hidden_s", 0.0))
-        self.views_rendered += int(phases.get("views", 0))
-        self.views_written_through += int(
-            phases.get("views_written_through", 0))
 
   def record_tiles(self, touched: int, rendered: int, total: int,
                    planes: int | None = None) -> None:
@@ -503,13 +488,10 @@ class ServeMetrics:
   def attrib_reference(self) -> dict:
     """The attribution ledger's conservation reference — the UNROUNDED
     request/phase totals (``snapshot()`` rounds to 3 decimals, which
-    would swamp the reconciliation's 1e-6 tolerance), of the three phases
-    the ledger splits (``readback_hidden`` lies inside them)."""
+    would swamp the reconciliation's 1e-6 tolerance)."""
     with self._lock:
       return {"requests": self.requests,
-              "device_phase_seconds": {
-                  p: self.phase_seconds[p]
-                  for p in ("h2d", "compute", "readback")}}
+              "device_phase_seconds": dict(self.phase_seconds)}
 
   def set_queue_depth(self, depth: int) -> None:
     with self._lock:
@@ -533,8 +515,6 @@ class ServeMetrics:
           "device_render_seconds": round(self.render_seconds, 3),
           "device_phase_seconds": {k: round(v, 3)
                                    for k, v in self.phase_seconds.items()},
-          "views": {"rendered": self.views_rendered,
-                    "written_through": self.views_written_through},
           "queue_depth": self._queue_depth,
           "errors": {
               "transient": self.errors_transient,

@@ -658,21 +658,17 @@ class MicroBatcher:
 
   def _record_phases(self, recorder, parent, t0, timings) -> None:
     """Anchor the engine's phase durations inside the attempt's render
-    window: upload then compute front-to-back, and the readback starting
-    ``readback_hidden_s`` before the compute's end, so that it overlaps the
-    compute by what ran under it (an engine reports 0 where no copy runs
-    under its flight's render). Under overlap,
+    window front-to-back so the sub-spans tile it. Under overlap,
     "compute" includes device queue wait behind earlier flights — the
     honest per-flight number."""
     if recorder is None or not timings:
       return
     h2d_end = t0 + timings["h2d_s"]
     compute_end = h2d_end + timings["compute_s"]
-    readback_start = compute_end - timings.get("readback_hidden_s", 0.0)
     recorder.record("h2d", t0, h2d_end, parent=parent)
     recorder.record("compute", h2d_end, compute_end, parent=parent)
-    recorder.record("readback", readback_start,
-                    readback_start + timings["readback_s"], parent=parent)
+    recorder.record("readback", compute_end,
+                    compute_end + timings["readback_s"], parent=parent)
 
   def _attempt(self, engine, scene_provider, scene_id, poses, recorder,
                handles):

@@ -6,8 +6,8 @@ the same text, letter for letter; the parser, the exemplar stripper, the
 pool aggregator and the TTL cache (fake clock) agree; ``SloTracker``'s
 ``mpi_slo_*`` families are JAX's on one scripted trace. The port's
 ``RenderService`` on the CPU exposes at ``/metrics`` the JAX service's
-``mpi_*`` family set for the same traffic, plus the engine's two view
-counters, and its render counters equal ``/stats``.
+``mpi_*`` family set for the same traffic, and its render counters equal
+``/stats``.
 """
 
 import json
@@ -51,12 +51,6 @@ def _pose(i):
   pose = np.eye(4, dtype=np.float32)
   pose[0, 3] = 0.01 * i
   return pose
-
-
-# The port engine's view counters (serve/engine.py's write-through), which
-# the JAX engine has no counterpart of.
-VIEW_FAMILIES = {"mpi_serve_views_rendered_total",
-                 "mpi_serve_views_written_through_total"}
 
 
 def _families(text: str) -> set:
@@ -110,41 +104,18 @@ def served():
 
 
 def test_same_stats_dict_renders_identical_text(served):
-  """Identical text, but for the port engine's extras, emitted only where
-  the stats report them: one more device phase, the readback that ran
-  under the render, one sample right after readback's; and the two view
-  counters right after the phases, each a HELP, a TYPE and one sample."""
-  extra = "mpi_serve_device_phase_seconds_total{phase=\"readback_hidden\"}"
   for name in ("port", "jax"):
     stats, hist = served[name]["stats"], served[name]["hist"]
-    hidden = "readback_hidden" in stats["device_phase_seconds"]
-    assert hidden == (name == "port") == ("views" in stats)
-    for args in ((stats, hist), (stats,)):
-      got = tprom.render_serve_metrics(*args).splitlines()
-      want = jprom.render_serve_metrics(*args).splitlines()
-      if hidden:
-        at = [i for i, line in enumerate(got) if line.startswith(extra)]
-        assert len(at) == 1 and got[at[0] - 1].startswith(
-            "mpi_serve_device_phase_seconds_total{phase=\"readback\"}")
-        views = got[at[0] + 1:at[0] + 7]
-        assert views == [
-            "# HELP mpi_serve_views_rendered_total Views the engine "
-            "rendered, live and padded.",
-            "# TYPE mpi_serve_views_rendered_total counter",
-            f"mpi_serve_views_rendered_total {stats['views']['rendered']}",
-            "# HELP mpi_serve_views_written_through_total Views rendered "
-            "straight into host memory, with no copy.",
-            "# TYPE mpi_serve_views_written_through_total counter",
-            "mpi_serve_views_written_through_total "
-            f"{stats['views']['written_through']}"], views
-        del got[at[0]:at[0] + 7]
-      assert got == want, name
+    assert tprom.render_serve_metrics(stats, hist) == \
+        jprom.render_serve_metrics(stats, hist), name
+    assert tprom.render_serve_metrics(stats) == \
+        jprom.render_serve_metrics(stats), name
 
 
 def test_service_metrics_family_set_equals_jax(served):
   port, jax = _families(served["port"]["text"]), \
       _families(served["jax"]["text"])
-  assert port == jax | VIEW_FAMILIES
+  assert port == jax
   assert all(f.startswith("mpi_") for f in port)
   for fam in ("mpi_serve_requests_total", "mpi_serve_request_latency_seconds",
               "mpi_serve_request_latency_nativehist", "mpi_slo_quantile",
@@ -209,6 +180,15 @@ def test_latency_histogram_equals_jax_metrics():
                        trace_id="t")
   assert ours.latency_histogram() == theirs.latency_histogram()
   assert ours.attrib_reference() == theirs.attrib_reference()
+
+
+def test_serve_metrics_snapshot_keys_equal_jax():
+  from mpi_vision_tpu.serve.metrics import ServeMetrics as JServeMetrics
+
+  ours, theirs = ServeMetrics(clock=_Clock()), JServeMetrics(clock=_Clock())
+  assert set(ours.snapshot()) == set(theirs.snapshot())
+  assert ours.snapshot()["device_phase_seconds"] == \
+      theirs.snapshot()["device_phase_seconds"]
 
 
 def test_hist_exposition_helpers_equal_jax():

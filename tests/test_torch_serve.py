@@ -142,14 +142,7 @@ def test_engine_buckets_pads_and_streams(svc):
   assert handle.out.shape[0] == 4 and engine.poll(handle)
   out = engine.wait(handle)
   assert out.shape == (3, H, W, 3) and engine.inflight == 0
-  assert set(handle.timings) == {"h2d_s", "compute_s", "readback_s",
-                                 "readback_hidden_s", "views",
-                                 "views_written_through"}
-  # The CPU renders synchronously: no readback runs under a render, and
-  # nothing is written through. The views count the padding.
-  assert handle.timings["readback_hidden_s"] == 0.0
-  assert handle.timings["views"] == 4
-  assert handle.timings["views_written_through"] == 0
+  assert set(handle.timings) == {"h2d_s", "compute_s", "readback_s"}
   np.testing.assert_array_equal(out, engine.render_batch(
       scene, np.stack(POSES[:3])))
 

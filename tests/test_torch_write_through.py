@@ -1,7 +1,8 @@
 """Write-through rendering on the CPU: ``render_to_host``'s plain path and
 its refusals, the launch shape it stages, which flights the serving engine
-writes through, the phase timings and view counts ``wait`` stamps, and the
-counters from the engine's timings to ``/metrics``.
+writes through, the three phase timings ``wait`` stamps, and their way to
+``/stats``, ``/metrics``, the attribution ledger and the flight recorder,
+as in the JAX package.
 
 On a card the serving engine renders a whole-scene ``fused_pallas`` flight
 straight into the flight's pinned host buffer (``serve/engine.py``,
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_vision_tpu.serve.scheduler import MicroBatcher as JMicroBatcher
 from mpi_vision_tpu_torch.core import render
 from mpi_vision_tpu_torch.core.sampling import Convention
 from mpi_vision_tpu_torch.kernels import render_fused as rf
@@ -168,98 +170,31 @@ class _Event:
 
 
 @pytest.mark.parametrize("through", [True, False])
-def test_wait_stamps_the_phases_and_views_of_a_card_flight(through):
+def test_wait_stamps_the_three_phases_of_a_card_flight(through):
   """A write-through flight has no copy, so ``readback_s`` is 0 and its
   frames' time over the link is in ``compute_s``; a copying flight's
-  readback is the sum of its copies' own time. Neither hides a readback
-  under its render."""
+  readback is the sum of its copies' own time. ``wait`` stamps these three
+  and nothing else, as the JAX engine does."""
   eng = RenderEngine(device="cpu", use_mesh=False)
   marks = [_Event(0.0), _Event(0.25), _Event(4.25)]
   if not through:
     marks += [_Event(4.5), _Event(6.0), _Event(6.5), _Event(7.0)]
   eng._acquire_slot()
   handle = InFlightBatch(eng, torch.zeros((8, 2, 3, 3)), None, 5, 0.0, 0.0,
-                         tuple(marks), through)
+                         tuple(marks))
   assert eng.wait(handle).shape == (5, 2, 3, 3) and eng.inflight == 0
   t = handle.timings
+  assert set(t) == {"h2d_s", "compute_s", "readback_s"}
   assert t["h2d_s"] == pytest.approx(0.25e-3)
   assert t["compute_s"] == pytest.approx(4e-3)
   assert t["readback_s"] == (0.0 if through else pytest.approx(2e-3))
-  assert t["readback_hidden_s"] == 0.0
-  assert (t["views"], t["views_written_through"]) == (8, 8 if through else 0)
 
 
-def test_engine_counts_views_rendered_and_written_through(baked):
-  """The CPU engine renders every view (padding included) and writes none
-  through; ``describe`` carries both counts."""
-  eng = RenderEngine(device="cpu", use_mesh=False)
-  for v in (1, 3, 5):
-    eng.render_batch(baked, np.stack([_pose(0.01 * i) for i in range(v)]))
-  desc = eng.describe()
-  assert desc["views_rendered"] == 1 + 4 + 8
-  assert desc["views_written_through"] == 0
+PHASES = {"h2d", "compute", "readback"}
 
 
-def test_metrics_accumulate_views_per_flight():
-  m = ServeMetrics()
-  m.record_batch(5, 0.01, phases={"h2d_s": 1e-4, "compute_s": 2e-3,
-                                  "readback_s": 0.0, "views": 8,
-                                  "views_written_through": 8})
-  m.record_batch(2, 0.01, phases={"h2d_s": 1e-4, "compute_s": 1e-3,
-                                  "readback_s": 2e-3, "views": 2,
-                                  "views_written_through": 0})
-  m.record_batch(1, 0.01)  # a flight with no phase split counts nothing
-  assert (m.views_rendered, m.views_written_through) == (10, 8)
-  assert m.snapshot()["views"] == {"rendered": 10, "written_through": 8}
-  m.reset()
-  assert m.snapshot()["views"] == {"rendered": 0, "written_through": 0}
-
-
-class _WritingEngine(RenderEngine):
-  """A CPU engine whose flights report what a card's write-through
-  flight does: every view written through, no readback."""
-
-  def wait(self, handle):
-    out = super().wait(handle)
-    handle.timings.update(readback_s=0.0,
-                          views_written_through=handle.timings["views"])
-    return out
-
-
-def test_written_through_views_reach_stats_and_metrics_text():
-  svc = RenderService(engine=_WritingEngine(device="cpu", use_mesh=False),
-                      max_batch=4, max_wait_ms=50.0)
-  try:
-    svc.add_synthetic_scenes(1, height=16, width=24, planes=3)
-    futs = [svc.render_async("scene_000", _pose(0.01 * i)) for i in range(6)]
-    for f in futs:
-      f.result(60)
-    stats = svc.stats()
-    views = stats["views"]
-    assert views["rendered"] == views["written_through"] >= 6
-    assert views["rendered"] == svc.engine.describe()["views_rendered"]
-    samples = prom.parse_metrics_text(svc.metrics_text())
-    for family, kind in (("mpi_serve_views_rendered_total", "rendered"),
-                         ("mpi_serve_views_written_through_total",
-                          "written_through")):
-      assert samples[family]["samples"][(family, ())] == views[kind]
-    assert stats["device_phase_seconds"]["readback"] == 0.0
-  finally:
-    svc.close()
-
-
-class _HidingEngine(RenderEngine):
-  """A CPU engine whose flights report a readback partly under the
-  render, as an engine that overlapped them would."""
-
-  def wait(self, handle):
-    out = super().wait(handle)
-    handle.timings["readback_hidden_s"] = 0.25e-3
-    return out
-
-
-def test_readback_hidden_reaches_metrics_and_attrib_still_reconciles():
-  svc = RenderService(engine=_HidingEngine(device="cpu", use_mesh=False),
+def test_three_phases_reach_stats_metrics_and_attrib_reconciles():
+  svc = RenderService(engine=RenderEngine(device="cpu", use_mesh=False),
                       max_batch=4, max_wait_ms=50.0,
                       attrib=attrib.AttribConfig())
   try:
@@ -269,37 +204,36 @@ def test_readback_hidden_reaches_metrics_and_attrib_still_reconciles():
       f.result(60)
     m = svc.metrics
     assert m.batches >= 2
-    assert m.phase_seconds["readback_hidden"] == pytest.approx(
-        0.25e-3 * m.batches)
+    assert set(m.phase_seconds) == PHASES
     stats = svc.stats()
-    assert stats["device_phase_seconds"]["readback_hidden"] == round(
-        0.25e-3 * m.batches, 3)
+    assert stats["device_phase_seconds"] == {
+        k: round(v, 3) for k, v in m.phase_seconds.items()}
     text = prom.render_serve_metrics(
         {**stats, "device_phase_seconds": dict(m.phase_seconds)})
     samples = prom.parse_metrics_text(text)[
         "mpi_serve_device_phase_seconds_total"]["samples"]
-    assert samples[("mpi_serve_device_phase_seconds_total",
-                    (("phase", "readback_hidden"),))] == pytest.approx(
-                        0.25e-3 * m.batches)
-    # The ledger splits the three phases only, and they still reconcile.
-    assert set(attrib.PHASES) == {"h2d", "compute", "readback"}
+    assert samples == {
+        ("mpi_serve_device_phase_seconds_total", (("phase", k),)):
+            pytest.approx(v) for k, v in m.phase_seconds.items()}
+    # The ledger splits the same three phases, and they reconcile.
+    assert set(attrib.PHASES) == PHASES
+    assert m.attrib_reference()["device_phase_seconds"] == m.phase_seconds
     snap = m.attrib.snapshot(reference=m.attrib_reference())
     assert snap["conservation"]["ok"], snap["conservation"]
   finally:
     svc.close()
 
 
-def test_metrics_accumulate_readback_hidden_per_flight():
+def test_metrics_accumulate_the_three_phases_per_flight():
   m = ServeMetrics()
   m.record_batch(4, 0.01, phases={"h2d_s": 1e-4, "compute_s": 2e-3,
-                                  "readback_s": 3e-3,
-                                  "readback_hidden_s": 1.5e-3})
+                                  "readback_s": 3e-3})
   m.record_batch(2, 0.01, phases={"h2d_s": 1e-4, "compute_s": 1e-3,
-                                  "readback_s": 2e-3})
-  assert m.phase_seconds["readback_hidden"] == pytest.approx(1.5e-3)
-  assert m.phase_seconds["readback"] == pytest.approx(5e-3)
-  assert set(m.attrib_reference()["device_phase_seconds"]) == {
-      "h2d", "compute", "readback"}
+                                  "readback_s": 0.0})
+  m.record_batch(1, 0.01)  # a flight with no phase split adds nothing
+  assert m.phase_seconds == pytest.approx(
+      {"h2d": 2e-4, "compute": 3e-3, "readback": 3e-3})
+  assert set(m.attrib_reference()["device_phase_seconds"]) == PHASES
 
 
 class _Recorder:
@@ -310,12 +244,13 @@ class _Recorder:
     self.spans[name] = (t0, t1)
 
 
-@pytest.mark.parametrize("hidden", [0.0, 1.5])
-def test_flight_recorder_anchors_readback_where_it_began(hidden):
-  rec = _Recorder()
-  MicroBatcher._record_phases(None, rec, None, 10.0, {
-      "h2d_s": 0.5, "compute_s": 2.0, "readback_s": 3.0,
-      "readback_hidden_s": hidden})
-  assert rec.spans["h2d"] == (10.0, 10.5)
-  assert rec.spans["compute"] == (10.5, 12.5)
-  assert rec.spans["readback"] == (12.5 - hidden, 15.5 - hidden)
+@pytest.mark.parametrize("readback", [0.0, 1.5])
+def test_flight_recorder_anchors_readback_where_it_began(readback):
+  """A write-through flight (no readback) and a copying one: the port
+  records the phases where the JAX scheduler does, front to back."""
+  timings = {"h2d_s": 0.5, "compute_s": 2.0, "readback_s": readback}
+  port, jax = _Recorder(), _Recorder()
+  MicroBatcher._record_phases(None, port, None, 10.0, timings)
+  JMicroBatcher._record_phases(None, jax, None, 10.0, timings)
+  assert port.spans == jax.spans
+  assert port.spans["readback"] == (12.5, 12.5 + readback)

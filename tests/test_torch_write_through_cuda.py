@@ -70,7 +70,7 @@ def test_write_through_flight_equals_device_output_and_plain_render(
     card, views, h, w):
   """Chunk remainders (1, 2, 3, 5 views), whole tiles with 16-byte rows
   (1080p, 540p) and a ragged frame whose rows take scalar stores (37 x
-  50): one launch, no copy, every view counted written through."""
+  50): one launch, no copy, the padded views written too."""
   scene = bake_scene("s", *synthetic_scene("s", h, w, P, seed=h + views),
                      device=card)
   eng = RenderEngine(device=card, use_mesh=False)
@@ -81,12 +81,10 @@ def test_write_through_flight_equals_device_output_and_plain_render(
   got = eng.wait(handle).copy()
   assert (render_fused.render_to_host.launches - launches[0],
           render_fused.render_mpi_fused.launches - launches[1]) == (1, 1)
-  bucket = eng.batch_bucket(views)
+  assert handle.out.shape[0] == eng.batch_bucket(views)
   t = handle.timings
-  assert t["readback_s"] == 0.0 and t["readback_hidden_s"] == 0.0
-  assert t["compute_s"] > 0.0
-  assert t["views"] == t["views_written_through"] == bucket
-  assert eng.describe()["views_written_through"] == bucket
+  assert set(t) == {"h2d_s", "compute_s", "readback_s"}
+  assert t["readback_s"] == 0.0 and t["compute_s"] > 0.0
   np.testing.assert_array_equal(got, _device_frames(eng, scene, poses))
   homs = render.views_homographies(
       torch.from_numpy(poses).to(card), scene.depths, scene.intrinsics, h, w,
@@ -97,7 +95,7 @@ def test_write_through_flight_equals_device_output_and_plain_render(
 
 def test_sharded_engine_on_one_card_twice(card, host_scene):
   """Two shards on one card write their halves of one pinned buffer, one
-  launch a shard; the counters hold the padded views."""
+  launch a shard; the buffer holds the padded views."""
   scene = bake_scene("s", *host_scene, device=card)
   poses = _poses(5, seed=3)
   sharded = RenderEngine(devices=[card, card], use_mesh=True)
@@ -106,8 +104,6 @@ def test_sharded_engine_on_one_card_twice(card, host_scene):
   got = sharded.wait(handle)
   assert render_fused.render_to_host.launches - launches == 2
   assert got.shape == (5, H, W, 3) and handle.out.shape[0] == 8
-  desc = sharded.describe()
-  assert desc["views_rendered"] == desc["views_written_through"] == 8
   np.testing.assert_array_equal(got, _device_frames(sharded, scene, poses))
 
 
@@ -124,8 +120,7 @@ def test_flights_that_keep_their_copy(card, host_scene):
   got = eng.wait(handle)
   assert render_fused.render_to_host.launches == launches
   t = handle.timings
-  assert t["readback_s"] > 0.0 and t["views_written_through"] == 0
-  assert eng.describe()["views_rendered"] == 4
+  assert t["readback_s"] > 0.0 and handle.out.shape[0] == 4
   want = render.render_views(
       scene.rgba_layers, torch.from_numpy(poses).to(card), scene.depths,
       scene.intrinsics, convention=eng.convention, method="pallas")
@@ -156,11 +151,12 @@ def test_freed_scene_and_back_to_back_flights_keep_their_frames(card,
 def test_concurrent_submitters_keep_frames_and_timings(card, host_scene):
   """Four completers submit at once, as the scheduler's do: their launches
   interleave on the card's compute stream. Every frame equals its flight
-  rendered alone, no flight reads back, and the counter holds every view."""
+  rendered alone, no flight reads back, and every flight is one launch."""
   scene = bake_scene("s", *host_scene, device=card)
   eng = RenderEngine(device=card, use_mesh=False, max_inflight=4)
   jobs = [_poses(v, seed=10 + i) for i, v in enumerate([8, 5, 3, 8, 1, 6,
                                                         8, 2] * 2)]
+  launches = render_fused.render_to_host.launches
   want = [eng.render_batch(scene, p) for p in jobs]
   got, errors = [None] * len(jobs), []
 
@@ -181,9 +177,7 @@ def test_concurrent_submitters_keep_frames_and_timings(card, host_scene):
   for (frames, t), w in zip(got, want):
     np.testing.assert_array_equal(frames, w)
     assert t["readback_s"] == 0.0 and t["compute_s"] > 0.0
-  desc = eng.describe()
-  assert desc["views_written_through"] == desc["views_rendered"] == 2 * sum(
-      eng.batch_bucket(len(p)) for p in jobs)
+  assert render_fused.render_to_host.launches - launches == 2 * len(jobs)
 
 
 def test_a_failed_shard_leaves_the_buffer_to_the_written_shard(card,
